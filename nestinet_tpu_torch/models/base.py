@@ -1,0 +1,94 @@
+"""Common model scaffolding.
+
+Counterpart of `nestinet_tpu/models/base.py`: the GMM's w/mu/sigma live on
+the model's device as (non-persistent) buffers, `mups_grid` computes the
+statistics grid, and `FCHead` is the reference's FC head (`:120-144`):
+hidden `DenseBN` layers with BN and ReLU, a last layer without BN.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..ops.mups import mups
+from ..ops.nn import Backbone, DenseBN
+
+
+class ModelBase(nn.Module):
+    def __init__(self, cfg, gmm):
+        super().__init__()
+        self.cfg = cfg
+        self.gmm = gmm
+        self.resolution = gmm.resolution
+        # cfg.mups_impl is read from config.json and ignored: the port has no
+        # implementation switch; ops.mups runs the CUDA kernel on a CUDA
+        # tensor and the plain version on a CPU tensor.
+        w, mu, sigma = gmm.astuple()
+        self.register_buffer("gmm_w", torch.from_numpy(w), persistent=False)
+        self.register_buffer("gmm_mu", torch.from_numpy(mu), persistent=False)
+        self.register_buffer("gmm_sigma", torch.from_numpy(sigma), persistent=False)
+
+    def mups_grid(self, points: torch.Tensor, n_eff: torch.Tensor) -> torch.Tensor:
+        """[B, res, res, res, 20 * n_scales] statistics grid (float32)."""
+        return mups(
+            points.to(torch.float32), n_eff,
+            self.gmm_w, self.gmm_mu, self.gmm_sigma,
+            n_scales=self.cfg.n_scales, resolution=self.resolution,
+        )
+
+
+class FCHead(nn.Module):
+    """`fc1..fc{n}` hidden DenseBN layers (BN + ReLU), then `fc{n+1}`
+    without BN and with an optional final ReLU."""
+
+    def __init__(self, cin: int, hidden, final_units: int, *, final_relu: bool):
+        super().__init__()
+        self.n_layers = len(hidden) + 1
+        c = cin
+        for i, units in enumerate(hidden):
+            self.add_module(f"fc{i + 1}", DenseBN(c, units, bn=True))
+            c = units
+        self.add_module(
+            f"fc{self.n_layers}", DenseBN(c, final_units, bn=False, relu=final_relu)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = getattr(self, f"fc{i + 1}")(x)
+        return x
+
+
+class ConvNet(nn.Module):
+    """A backbone followed by an FC head, on an NCDHW grid."""
+
+    def __init__(self, spec, cin: int, resolution: int, hidden, final_units: int,
+                 *, final_relu: bool):
+        super().__init__()
+        self.backbone = Backbone(spec, cin, resolution)
+        self.head = FCHead(
+            self.backbone.out_features, hidden, final_units, final_relu=final_relu
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head(self.backbone(x))
+
+
+@torch.no_grad()
+def init_params(module: nn.Module, generator: torch.Generator) -> None:
+    """Xavier-uniform kernels and zero biases, as the reference initialises
+    them (`nestinet_tpu/ops/nn.py:36`, VarianceScaling(1, fan_avg,
+    uniform)); BatchNorm parameters and state keep their defaults."""
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "w":
+            receptive = math.prod(p.shape[2:]) if p.dim() > 2 else 1
+            fan_in, fan_out = p.shape[1] * receptive, p.shape[0] * receptive
+            limit = math.sqrt(6.0 / (fan_in + fan_out))
+            draw = torch.empty(p.shape, dtype=p.dtype)
+            draw.uniform_(-limit, limit, generator=generator)
+            p.copy_(draw)
+        elif leaf == "b":
+            p.zero_()

@@ -1,0 +1,123 @@
+"""Nesti-Net mixture-of-experts normal estimation (flagship model), dense
+inference.
+
+Counterpart of `nestinet_tpu/models/experts.py`:
+  * MuPS: per-radius 3DmFV grids channel-concatenated;
+  * a manager CNN + FC 1024/256/128/n_experts, ReLU THEN a float32 softmax,
+    giving [n_experts, B] probabilities (`:85-93`);
+  * n_experts expert CNNs, each on its scales' 20-channel slice starting at
+    min(scales)*20, first inception width 128 // len(scales) (42 for the
+    3-scale expert) (`:66-73`, `:50`);
+  * dense inference: every expert runs on every patch, the argmax expert's
+    normal is kept (first maximum on ties, as jnp.argmax).
+
+The reference stacks the experts of one scale count and vmaps them; here
+they are a `ModuleList` in reference expert order, which computes the same
+function.  `expert_groups` keeps the reference's grouping because the
+haiku checkpoint is laid out by it (`convert.py`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import backbones
+from .base import ConvNet, ModelBase
+
+
+@dataclasses.dataclass
+class ExpertGroup:
+    """Experts sharing an architecture (the same scale count)."""
+
+    n_scales: int
+    indices: list  # expert ids, in reference order
+    starts: list  # channel-slice starts into the MuPS grid
+
+    @property
+    def channels(self) -> int:
+        return 20 * self.n_scales
+
+    @property
+    def first_width(self) -> int:
+        return 128 // self.n_scales
+
+
+def expert_groups(cfg) -> list[ExpertGroup]:
+    """The reference's grouping: by scale count, groups in ascending scale
+    count, members in expert order (`experts.py:66-73`)."""
+    assignment = cfg.expert_assignment
+    if len(assignment) != cfg.n_experts:
+        raise ValueError("expert_dict size must equal n_experts")
+    by_key: dict[int, ExpertGroup] = {}
+    for i in range(cfg.n_experts):
+        scales = assignment[i]
+        g = by_key.setdefault(len(scales), ExpertGroup(len(scales), [], []))
+        g.indices.append(i)
+        g.starts.append(min(scales) * 20)
+    return [by_key[k] for k in sorted(by_key)]
+
+
+class ExpertsNormEst(ModelBase):
+    def __init__(self, cfg, gmm):
+        super().__init__(cfg, gmm)
+        res = self.resolution
+        if res not in (3, 8):
+            raise ValueError("the MoE model supports 3^3 or 8^3 Gaussian grids")
+        self.n_experts = cfg.n_experts
+        self.groups = expert_groups(cfg)
+        tiny = bool(getattr(cfg, "tiny_backbone", False))
+        if tiny:
+            manager_spec = backbones.TINY
+        else:
+            manager_spec = backbones.CONV_NET_8G if res == 8 else backbones.CONV_NET_3G
+        self.manager = ConvNet(
+            manager_spec, 20 * cfg.n_scales, res, (1024, 256, 128), self.n_experts,
+            final_relu=True,  # ReLU before the softmax
+        )
+        experts = [None] * self.n_experts
+        self.slices = [None] * self.n_experts
+        for g in self.groups:
+            if tiny:
+                spec = backbones.TINY
+            elif res == 8:
+                spec = backbones.expert_backbone_8g(g.first_width)
+            else:
+                spec = backbones.CONV_NET_3G  # 3^3 experts ignore the divider
+            for i, start in zip(g.indices, g.starts):
+                experts[i] = ConvNet(
+                    spec, g.channels, res, (512, 128, 64), 3, final_relu=False
+                )
+                self.slices[i] = (start, start + g.channels)
+        self.experts = torch.nn.ModuleList(experts)
+
+    def forward_grid(self, grid: torch.Tensor) -> dict:
+        """Dense MoE on a [B, r, r, r, C] grid -> {"n_pred": [E, B, 3],
+        "experts_prob": [E, B]}."""
+        x = grid.permute(0, 4, 1, 2, 3)  # NCDHW
+        logits = self.manager(x)
+        probs = torch.softmax(logits.to(torch.float32), dim=-1).t()
+        n_pred = torch.stack(
+            [
+                expert(x[:, lo:hi]).to(torch.float32)
+                for expert, (lo, hi) in zip(self.experts, self.slices)
+            ]
+        )
+        return {"n_pred": n_pred, "experts_prob": probs}
+
+    def forward(self, points: torch.Tensor, n_eff: torch.Tensor) -> dict:
+        return self.forward_grid(self.mups_grid(points, n_eff))
+
+    @staticmethod
+    def predict_normals(outputs: dict) -> torch.Tensor:
+        """The argmax expert's normal per patch, [B, 3]."""
+        idx = torch.argmax(outputs["experts_prob"], dim=0)
+        cols = torch.arange(idx.shape[0], device=idx.device)
+        return outputs["n_pred"][idx, cols]
+
+    @staticmethod
+    def predict_experts(outputs: dict):
+        """(expert id [B], probabilities [B, E]) for the results writers."""
+        probs = outputs["experts_prob"]
+        return torch.argmax(probs, dim=0), probs.t()

@@ -1,0 +1,170 @@
+"""The port's serving slice end to end against the JAX package, on the CPU.
+
+One tiny-backbone `experts_n_est` run dir holds a JAX checkpoint and the
+same weights converted to the port's torch checkpoint.  JAX
+`predict_shapes(moe_inference="dense", compute_dtype="float32")` and the
+port's `predict_shapes(device="cpu")` serve the synthetic protocol
+testset into two output dirs (the last batch is zero-padded, so rows with
+n_eff = 0 go through both).  Bars: `.normals` within atol 1e-4
+elementwise (float32, different summation orders), `.experts`
+identical, evaluate.py RMS within 0.01 degrees.
+"""
+
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from nestinet_tpu.core import checkpoint as jax_ckpt
+from nestinet_tpu.core.rundir import RunDir
+from nestinet_tpu.data.synthetic import TEST_SHAPES, build_protocol_benchmark
+from nestinet_tpu.eval.evaluate import evaluate_dataset
+from nestinet_tpu.infer.predict import predict_shapes as jax_predict_shapes
+from nestinet_tpu.models import build_model as jax_build_model
+from nestinet_tpu.ops.gmm import get_3d_grid_gmm
+from nestinet_tpu.train.train_step import make_optimizer
+from nestinet_tpu_torch import convert
+from nestinet_tpu_torch.core import checkpoint
+from nestinet_tpu_torch.infer.predict import predict_shapes
+
+from .test_torch_experts import random_bn, tiny_cfg
+
+torch.set_num_threads(1)
+
+N_POINTS = 300
+BATCH = 64
+
+
+def _spread_manager_logits(params, state, cfg, gmm, data):
+    """Rescale the manager's last layer so that its logits on real test
+    patches are about 1 + 2 N(0, 1) per expert: with random weights they
+    otherwise sit below the final ReLU for most experts, every patch routes
+    to one expert, and the argmax comparison would check little."""
+    from nestinet_tpu.data.loader import get_data_loader
+
+    from nestinet_tpu_torch.models import build_model
+    from nestinet_tpu_torch.ops.gmm import GridGMM
+
+    loader, _ = get_data_loader(
+        "testset.txt", indir=data, batch_size=256, patch_radius=cfg.patch_radius,
+        points_per_patch=cfg.num_point, outputs=(), seed=cfg.seed,
+        patch_sample_order="full",
+    )
+    batch = next(iter(loader))
+    model = build_model(cfg, GridGMM(gmm.weights, gmm.means, gmm.covariances))
+    model.load_state_dict(convert.from_haiku(params, state, cfg))
+    model.eval()
+    head = model.manager.head
+    with torch.inference_mode():
+        grid = model.mups_grid(torch.from_numpy(batch["points"]),
+                               torch.from_numpy(batch["n_eff"]))
+        h = model.manager.backbone(grid.permute(0, 4, 1, 2, 3))
+        h = head.fc3(head.fc2(head.fc1(h))).numpy()
+    last = params["manager"]["fc4/linear"]
+    z = h @ last["w"]
+    scale = 2.0 / z.std(axis=0)
+    last["w"] = (last["w"] * scale).astype(np.float32)
+    last["b"] = (1.0 - z.mean(axis=0) * scale).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("torch_slice"))
+    data = os.path.join(root, "data")
+    build_protocol_benchmark(data, n_points=N_POINTS, n_pidx=100, seed=5)
+
+    cfg = tiny_cfg(log_dir=os.path.join(root, "run"), data_path=data,
+                   num_gaussians=3, gmm_variance=1.0 / 9, num_point=16,
+                   patch_radius=(0.05, 0.1, 0.2))
+    rd = RunDir.create(cfg.log_dir)
+    cfg.save(rd.config_path)
+    gmm = get_3d_grid_gmm([3, 3, 3], variance=cfg.gmm_variance)
+    gmm.save(rd.gmm_path)
+
+    rng = np.random.RandomState(7)
+    jmodel = jax_build_model(cfg, gmm)
+    sample = {"points": rng.uniform(-1, 1, (4, 48, 3)).astype(np.float32),
+              "n_eff": np.full((4, 3), 16, np.int32)}
+    params, state = jax.jit(jmodel.init)(jax.random.PRNGKey(1), sample)
+    params, state = random_bn(params, state, rng)
+    _spread_manager_logits(params, state, cfg, gmm, data)
+    jax_ckpt.save(rd.ckpt_dir, params=params, state=state,
+                  opt_state=make_optimizer(cfg).init(params), step=0, epoch=0)
+    checkpoint.save(rd.path, convert.from_haiku(params, state, cfg))
+
+    common = dict(testset="testset.txt", data_path=data, batch_size=BATCH,
+                  loader_workers=2)
+    jax_stats = jax_predict_shapes(
+        rd.path, output_dir=os.path.join(root, "jax"), moe_inference="dense",
+        compute_dtype="float32", **common,
+    )
+    port_stats = predict_shapes(
+        rd.path, output_dir=os.path.join(root, "port"), device="cpu", **common
+    )
+    return data, jax_stats, port_stats
+
+
+def test_slice_serves_every_point(served):
+    _, jax_stats, port_stats = served
+    n = len(TEST_SHAPES) * N_POINTS
+    assert n % BATCH != 0  # the last batch is zero-padded
+    assert port_stats["n_patches"] == jax_stats["n_patches"] == n
+    assert port_stats["shapes"] == jax_stats["shapes"]
+    assert port_stats["device"] == "cpu"
+
+
+def test_slice_outputs_match_jax(served):
+    _, jax_stats, port_stats = served
+    ids = []
+    for shape in jax_stats["shapes"]:
+        path = lambda d, ext: os.path.join(d["output_dir"], shape + ext)  # noqa: E731
+        want = np.loadtxt(path(jax_stats, ".normals"))
+        got = np.loadtxt(path(port_stats, ".normals"))
+        assert got.shape == want.shape == (N_POINTS, 3)
+        np.testing.assert_allclose(got, want, atol=1e-4, err_msg=shape)
+        ids.append(np.loadtxt(path(port_stats, ".experts")))
+        np.testing.assert_array_equal(
+            ids[-1], np.loadtxt(path(jax_stats, ".experts")), err_msg=shape
+        )
+        np.testing.assert_allclose(
+            np.loadtxt(path(port_stats, ".experts_probs")),
+            np.loadtxt(path(jax_stats, ".experts_probs")), atol=1e-4, err_msg=shape,
+        )
+    # the manager routes to several experts, so argmax agreement is a real check
+    assert len(np.unique(np.concatenate(ids))) >= 3
+
+
+def test_slice_rms_matches_jax(served):
+    data, jax_stats, port_stats = served
+    quiet = lambda *_: None  # noqa: E731
+    want = evaluate_dataset(data, jax_stats["output_dir"], "testset", log=quiet)
+    got = evaluate_dataset(data, port_stats["output_dir"], "testset", log=quiet)
+    assert np.isfinite(got["rms"])
+    assert abs(got["rms"] - want["rms"]) < 0.01
+
+
+@pytest.mark.parametrize("flag", [
+    "--moe_inference=sparse", "--compute_dtype=bfloat16", "--extraction=device",
+])
+def test_cli_refuses_unported_modes(flag):
+    from nestinet_tpu_torch.cli import test as cli_test
+
+    with pytest.raises(NotImplementedError, match="not ported"):
+        cli_test.main(["--results_path=unused", flag])
+
+
+def test_default_device_never_falls_back_to_cpu(served):
+    """Serving defaults to CUDA; without a GPU it raises instead of running
+    on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from nestinet_tpu_torch.core.device import resolve_device
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    data, _, port_stats = served
+    run_path = os.path.join(os.path.dirname(port_stats["output_dir"]), "run")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        predict_shapes(run_path, testset="testset.txt", data_path=data)
