@@ -7,26 +7,44 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
   1. device: require CUDA, print the card's name and power limit, turn
      TF32 off (the JAX reference computes in float32);
-  2. build: compile every kernel of the serving path with nvcc from
-     `nestinet_tpu_torch/csrc/` into the gitignored build directory;
-  3. kernel: the MuPS CUDA kernel against its plain PyTorch version on the
-     card at the flagship shape (384 rows = 128 patches x 3 scales, 512
-     points, 512 Gaussians), unpadded, randomly padded and with n_eff = 0
-     rows, at atol 1e-5; its gradient at a small shape at atol 1e-4;
-  4. slice: a full-width `experts_n_est` run dir (3 radii, 512 points, 8^3
-     Gaussians, 7 experts, random weights from a seed) serves a synthetic
-     protocol testset through `predict_shapes` at batch 128; the launch
-     counts show the main path went through every kernel; every
-     `.normals` row is finite, every `.experts` id in [0, 7); the outputs
-     are scored by `eval/evaluate.py`; one batch is compared with the same
-     model on the plain MuPS (argmax ids identical, normals at atol 1e-4);
-  5. times: kernel and plain MuPS (CUDA events, median of 20 after
-     warm-up), the model's forward, the slice's patches/s and peak memory.
+  2. build: compile the one CUDA library (`csrc/mups_kernel.cu`, which
+     holds both MuPS kernels) with nvcc into the gitignored build
+     directory; print its ptxas lines;
+  3. MuPS kernel (one block per row) against its plain PyTorch version at
+     the serving shapes (384 and 768 rows of 512 points, 512 Gaussians),
+     unpadded, randomly padded and with n_eff = 0 rows, at atol 1e-5; its
+     gradient at a small shape at atol 1e-4;
+  4. blocked MuPS kernel at 768 rows for block_b in {1, 2, 4, 8}: against
+     the plain version at atol 1e-5 on the same three row sets, and against
+     the first kernel (identical); 766 rows in blocks of 4 raise; then its
+     entry point, `nestinet_tpu_torch.scripts.mups_kernel_exp.main`;
+  5. device extraction: one batch of 256 queries per radius of the
+     flagship config on one synthetic shape, extracted on the card and on
+     the CPU from the same inputs: grids, selected rows, hit masks and
+     n_eff identical;
+  6. the routed slice: a full-width `experts_n_est` run dir (3 radii, 512
+     points, 8^3 Gaussians, 7 experts, random weights and BatchNorm state
+     from a seed, the manager's last layer rescaled so that patches route
+     to several experts) serves the 6-shape synthetic testset (30,000 patches)
+     through `predict_shapes_device` (device extraction, argmax-only
+     routing, batch 256): one MuPS launch per batch, finite normals, ids in
+     [0, 7), a finite RMS from `eval/evaluate.py`;
+  7. the host routed path (`predict_shapes`, kd-tree extraction, batch
+     128) on the same run dir and testset, checked the same way;
+  8. the host dense path on two of the shapes, checked the same way; then
+     one device-extracted batch routed and dense (identical ids, normals at
+     atol 1e-4) and one host batch against the same model on the plain
+     MuPS;
+  9. times: both kernels and the plain version (CUDA events, median after
+     warm-up), extraction per batch, the forward, and each serving path's
+     patches/s and peak memory.
 
-The line before the last is the card as nvidia-smi reports it; the one
-before that is the kernels' JSON summary; the last line is
-{"ok": true, "device": {...}}.  `--record PATH` also writes every number
-measured to a JSON file.
+Each serving path and the kernels' entry point run with the launch counts
+set to 0 just before and read just after; a kernel of the path that was
+not launched fails the run.  The line before the last is the card as
+nvidia-smi reports it; the one before that is the kernels' JSON summary;
+the last line is {"ok": true, "device": {...}}.  `--record PATH` also
+writes every number measured to a JSON file.
 """
 
 from __future__ import annotations
@@ -40,11 +58,15 @@ import tempfile
 import time
 
 SEED = 3627473
-BATCH = 128
+HOST_BATCH = 128
+DEVICE_BATCH = 256
 N_POINTS = 5000  # points per synthetic shape; the testset has 6 shapes
+N_EXPERTS = 7
+BLOCKS = (1, 2, 4, 8)
 KERNEL_ATOL = 1e-5
 GRAD_ATOL = 1e-4
 NORMALS_ATOL = 1e-4
+EXTRACT_ATOL = 1e-6
 
 
 def fail(msg: str):
@@ -57,25 +79,6 @@ def gpu_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_median_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
 
 
 def flagship_rows(gen, R, N, mode, device):
@@ -113,73 +116,62 @@ def randomize_bn(model, gen):
                 m.gamma.copy_(0.8 + 0.4 * torch.rand(c, generator=gen))
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description="GPU smoke test of the PyTorch port")
-    parser.add_argument("--record", default=None,
-                        help="also write every measured number to this JSON file")
-    args = parser.parse_args(argv)
-
-    import numpy as np
+def spread_manager_logits(model, grids, queries, radii, seed, caps):
+    """Rescale the manager's last layer so that its logits on one batch of
+    real patches are about 1 + 2 N(0, 1) per expert: with random weights
+    most of them otherwise sit below the final ReLU, and nearly every patch
+    routes to one expert."""
     import torch
 
-    # ---- 1. device ----
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from nestinet_tpu_torch.core.device import resolve_device, set_f32_numerics
+    from nestinet_tpu_torch.infer.device_pipeline import extract_batch
 
-    dev = resolve_device("cuda")
-    set_f32_numerics()
-    card = gpu_line()
-    name = torch.cuda.get_device_name(0)
-    print(f"device: {name} | nvidia-smi: {card} | torch {torch.__version__} "
-          f"cuda {torch.version.cuda}", flush=True)
-    record = {"gpu": card, "device_name": name, "torch": torch.__version__}
+    head = model.manager.head
+    with torch.inference_mode():
+        points, n_eff = extract_batch(grids, queries, radii, seed,
+                                      num_point=model.cfg.num_point, caps=caps)
+        x = model.mups_grid(points, n_eff).permute(0, 4, 1, 2, 3)
+        h = head.fc3(head.fc2(head.fc1(model.manager.backbone(x))))
+        last = head.fc4.linear
+        z = h @ last.w.t()  # [B, E], before the bias
+        scale = 2.0 / z.std(dim=0)
+        last.w.mul_(scale[:, None])
+        last.b.copy_(1.0 - z.mean(dim=0) * scale)
 
-    # ---- 2. build ----
+
+def check_kernel(gen, dev, gmm_t, R, N=512):
+    """Phase 3 at R rows: the MuPS kernel against its plain version."""
+    import torch
+
     from nestinet_tpu_torch.ops import mups as mups_ops
     from nestinet_tpu_torch.ops.kernels import mups_cuda
 
-    kernels = [mups_cuda.KERNEL]
-    for k in kernels:
-        t0 = time.perf_counter()
-        path = k.build()
-        k.lib()
-        secs = time.perf_counter() - t0
-        print(f"build: {k.name} -> {os.path.relpath(path)} in {secs:.2f} s", flush=True)
-        for line in k.ptxas_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
-        record[f"build_seconds_{k.name}"] = secs
-
-    # ---- 3. kernel against its plain version, flagship shape ----
-    from nestinet_tpu_torch.ops.gmm import get_3d_grid_gmm
-
-    gmm = get_3d_grid_gmm([8, 8, 8], variance=0.0156)
-    w, mu, sigma = (torch.from_numpy(a).to(dev) for a in gmm.astuple())
-    gen = torch.Generator().manual_seed(SEED)
-    R, N = 3 * BATCH, 512
     max_err = 0.0
     for mode in ("unpadded", "random", "zeros"):
         pts, n_eff = flagship_rows(gen, R, N, mode, dev)
-        got = mups_cuda.tdmfv_n_est_cuda(pts, w, mu, sigma, n_eff)
-        torch.cuda.synchronize()
-        want = mups_ops.tdmfv_n_est_reference(pts, w, mu, sigma, n_eff)
+        got = mups_cuda.tdmfv_n_est_cuda(pts, *gmm_t, n_eff)
+        want = mups_ops.tdmfv_n_est_reference(pts, *gmm_t, n_eff)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
-            fail(f"kernel output not finite ({mode})")
+            fail(f"kernel output not finite ({mode}, R={R})")
         err = (got - want).abs().max().item()
         max_err = max(max_err, err)
-        print(f"kernel vs plain [{mode}]: max abs err {err:.3e} (atol {KERNEL_ATOL})",
+        print(f"kernel vs plain [R={R}, {mode}]: max abs err {err:.3e} (atol {KERNEL_ATOL})",
               flush=True)
         if not err <= KERNEL_ATOL:  # NaN fails too
-            fail(f"MuPS kernel disagrees with its plain version ({mode}): {err}")
-    record["kernel_max_abs_err"] = max_err
+            fail(f"MuPS kernel disagrees with its plain version ({mode}, R={R}): {err}")
+    return max_err
 
-    # gradient through the autograd.Function at a small shape; unpadded,
-    # because a statistic that is exactly 0 (a masked row's zero deciding a
-    # max) has no derivative under the signed square root, in the
-    # reference as here
+
+def check_gradient(gen, dev):
+    """Phase 3: the gradient through the autograd.Function at a small
+    shape; unpadded, because a statistic that is exactly 0 (a masked row's
+    zero deciding a max) has no derivative under the signed square root, in
+    the reference as here."""
+    import torch
+
+    from nestinet_tpu_torch.ops import mups as mups_ops
+    from nestinet_tpu_torch.ops.gmm import get_3d_grid_gmm
+
     gmm3 = get_3d_grid_gmm([3, 3, 3], variance=1.0 / 9)
     w3, mu3, s3 = (torch.from_numpy(a).to(dev) for a in gmm3.astuple())
     pts, n_eff = flagship_rows(gen, 8, 64, "unpadded", dev)
@@ -194,14 +186,221 @@ def main(argv=None) -> int:
     if not gerr <= GRAD_ATOL:
         fail(f"gradient through the kernel's Function disagrees: {gerr}")
 
-    # ---- 4. the slice, end to end ----
+
+def check_blocked(gen, dev, gmm_t, R=3 * DEVICE_BATCH, N=512):
+    """Phase 4: the blocked kernel against the plain version and against
+    the one-row-per-block kernel; (max err to plain, max diff to kernel 1)."""
+    import torch
+
+    from nestinet_tpu_torch.ops import mups as mups_ops
+    from nestinet_tpu_torch.ops.kernels import mups_cuda
+
+    max_err = max_diff = 0.0
+    for mode in ("unpadded", "random", "zeros"):
+        pts, n_eff = flagship_rows(gen, R, N, mode, dev)
+        want = mups_ops.tdmfv_n_est_reference(pts, *gmm_t, n_eff)
+        one = mups_cuda.tdmfv_n_est_cuda(pts, *gmm_t, n_eff)
+        for bb in BLOCKS:
+            got = mups_cuda.tdmfv_n_est_blocked_cuda(pts, *gmm_t, n_eff, bb)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                fail(f"blocked kernel output not finite ({mode}, block_b={bb})")
+            err = (got - want).abs().max().item()
+            diff = (got - one).abs().max().item()
+            max_err, max_diff = max(max_err, err), max(max_diff, diff)
+            print(f"blocked kernel [block_b={bb}, {mode}]: max abs err {err:.3e} "
+                  f"(atol {KERNEL_ATOL}), max abs diff from the one-row kernel {diff:.3e}",
+                  flush=True)
+            if not err <= KERNEL_ATOL:
+                fail(f"blocked kernel disagrees with its plain version ({mode}, "
+                     f"block_b={bb}): {err}")
+            if not diff == 0.0:
+                fail(f"blocked kernel differs from the one-row kernel ({mode}, "
+                     f"block_b={bb}): {diff}")
+    pts, n_eff = flagship_rows(gen, R - 2, N, "random", dev)
+    try:
+        mups_cuda.tdmfv_n_est_blocked_cuda(pts, *gmm_t, n_eff, 4)
+    except ValueError as e:
+        print(f"blocked kernel, {R - 2} rows in blocks of 4: raises ({e})", flush=True)
+    else:
+        fail(f"blocked kernel took {R - 2} rows in blocks of 4")
+    return max_err, max_diff
+
+
+def check_extraction(dev, data, shape, radii_frac):
+    """Phase 5: one batch of DEVICE_BATCH queries per radius, extracted on
+    the card and on the CPU from the same inputs; returns the batch's
+    inputs for timing."""
+    import numpy as np
+    import torch
+
+    from nestinet_tpu.data.pcpnet import _load_cached
+    from nestinet_tpu_torch.infer.device_pipeline import _dataset_window_caps
+    from nestinet_tpu_torch.ops import ball_query as bq
+
+    cloud = _load_cached(os.path.join(data, shape + ".xyz"), np.float32)
+    rng = np.random.RandomState(SEED)
+    shuffled = cloud[rng.permutation(cloud.shape[0])]
+    queries = cloud[:DEVICE_BATCH]
+    caps = _dataset_window_caps([cloud], radii_frac)
+    bbdiag = float(np.linalg.norm(cloud.max(0) - cloud.min(0)))
+    radii = [r * bbdiag for r in radii_frac]
+    places = {"card": dev, "cpu": torch.device("cpu")}
+    grids = {k: [bq.build_grid(torch.from_numpy(shuffled).to(d), r) for r in radii]
+             for k, d in places.items()}
+    seed = int(rng.randint(0, 2**31))
+    for i, (radius, cap) in enumerate(zip(radii, caps)):
+        g_card, g_cpu = grids["card"][i], grids["cpu"][i]
+        for field in bq.HashGrid._fields:
+            if not torch.equal(getattr(g_card, field).cpu(), getattr(g_cpu, field)):
+                fail(f"grid field {field} differs between the card and the CPU (r={radius})")
+        out = {}
+        for k, d in places.items():
+            q = torch.from_numpy(queries).to(d)
+            rows, _, took, n_eff = bq._query_select(
+                grids[k][i], q, radius, k=512, cell_capacity=64, seed=seed + i,
+                window_capacity=cap)
+            patch, _ = bq.extract_patches(grids[k][i], q, radius, k=512, seed=seed + i,
+                                          window_capacity=cap)
+            out[k] = [t.cpu() for t in (rows, took, n_eff, patch)]
+        for name, a, b in zip(("rows", "took_hit", "n_eff"), out["card"], out["cpu"]):
+            if not torch.equal(a, b):
+                fail(f"extraction {name} differs between the card and the CPU (r={radius})")
+        perr = (out["card"][3] - out["cpu"][3]).abs().max().item()
+        n_eff = out["card"][2]
+        print(f"extraction r={radius:.4f} (lanes {cap}): rows, hit masks, n_eff identical "
+              f"on card and CPU; patches max abs diff {perr:.1e}; n_eff min "
+              f"{int(n_eff.min())} mean {float(n_eff.float().mean()):.1f} max "
+              f"{int(n_eff.max())}", flush=True)
+        if not perr <= EXTRACT_ATOL:
+            fail(f"extracted patches differ between the card and the CPU: {perr}")
+    return grids["card"], torch.from_numpy(queries).to(dev), radii, seed, caps
+
+
+def check_outputs(data, out_dir, testset, n_experts):
+    """Every `.normals` row finite, every `.experts` id in range, a finite
+    RMS; returns the evaluation summary."""
+    import numpy as np
+
+    from nestinet_tpu.eval.evaluate import evaluate_dataset
+
+    with open(os.path.join(data, testset + ".txt")) as f:
+        shapes = [s.strip() for s in f if s.strip()]
+    for shape in shapes:
+        n_pts = np.loadtxt(os.path.join(data, shape + ".xyz")).shape[0]
+        normals = np.loadtxt(os.path.join(out_dir, shape + ".normals"))
+        experts = np.loadtxt(os.path.join(out_dir, shape + ".experts"))
+        if normals.shape != (n_pts, 3) or not np.isfinite(normals).all():
+            fail(f"{shape}.normals: shape {normals.shape} or non-finite values")
+        if experts.shape != (n_pts,) or experts.min() < 0 or experts.max() >= n_experts:
+            fail(f"{shape}.experts: bad shape or ids out of [0, {n_experts})")
+    summary = evaluate_dataset(data, out_dir, testset, log=lambda *_: None)
+    if not np.isfinite(summary["rms"]):
+        fail(f"RMS is not finite ({out_dir})")
+    return summary
+
+
+def serve(name, fn, kernel, card):
+    """Drive one serving path with the launch counts at 0; check that it
+    launched the MuPS kernel once per batch."""
+    import torch
+
+    kernel.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    stats = fn()
+    launches = dict(kernel.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    extra = (f", loader wait {stats['loader_wait_seconds']:.2f} s"
+             if "loader_wait_seconds" in stats else "")
+    print(f"{name}: {stats['n_patches']} patches in {stats['n_batches']} batches, "
+          f"{stats['seconds']:.2f} s, {stats['patches_per_sec']:.1f} patches/s{extra}, "
+          f"peak {peak_gb:.2f} GB, launches {launches}, patches per expert "
+          f"{stats['expert_rows']} [{card}]", flush=True)
+    if launches["tdmfv_n_est"] != stats["n_batches"]:
+        fail(f"{name}: MuPS launches {launches['tdmfv_n_est']} != batches "
+             f"{stats['n_batches']}")
+    if "jax" in sys.modules:
+        fail("jax was imported")
+    stats = {k: v for k, v in stats.items() if k not in ("shapes",)}
+    stats.update(peak_memory_gb=peak_gb, launches=launches)
+    return stats
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="GPU smoke test of the PyTorch port")
+    parser.add_argument("--record", default=None,
+                        help="also write every measured number to this JSON file")
+    args = parser.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    # ---- 1. device ----
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from nestinet_tpu_torch.core.device import cuda_median_ms, resolve_device, set_f32_numerics
+
+    dev = resolve_device("cuda")
+    set_f32_numerics()
+    card = gpu_line()
+    name = torch.cuda.get_device_name(0)
+    print(f"device: {name} | nvidia-smi: {card} | torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
+    record = {"gpu": card, "device_name": name, "torch": torch.__version__}
+
+    # ---- 2. build ----
+    from nestinet_tpu_torch.ops import mups as mups_ops
+    from nestinet_tpu_torch.ops.kernels import mups_cuda
+    from nestinet_tpu_torch.scripts import mups_kernel_exp
+
+    kernel = mups_cuda.KERNEL
+    t0 = time.perf_counter()
+    path = kernel.build()
+    lib = kernel.lib()
+    secs = time.perf_counter() - t0
+    print(f"build: {kernel.name} -> {os.path.relpath(path)} in {secs:.2f} s", flush=True)
+    for line in kernel.ptxas_log.splitlines():
+        if any(s in line for s in ("entry function", "registers", "spill")):
+            print(f"  ptxas: {line.strip()}")
+    for k in kernel.launches:
+        if not hasattr(lib, k + "_launch"):
+            fail(f"the library has no {k}_launch")
+        if kernel.ptxas_log and f"{k}_kernel" not in kernel.ptxas_log:
+            fail(f"ptxas compiled no {k}_kernel")
+    record["build_seconds"] = secs
+
+    # ---- 3. MuPS kernel against its plain version ----
+    from nestinet_tpu_torch.ops.gmm import get_3d_grid_gmm
+
+    gmm = get_3d_grid_gmm([8, 8, 8], variance=0.0156)
+    gmm_t = tuple(torch.from_numpy(a).to(dev) for a in gmm.astuple())
+    gen = torch.Generator().manual_seed(SEED)
+    k1_err = max(check_kernel(gen, dev, gmm_t, 3 * HOST_BATCH),
+                 check_kernel(gen, dev, gmm_t, 3 * DEVICE_BATCH))
+    check_gradient(gen, dev)
+
+    # ---- 4. blocked MuPS kernel, then its entry point ----
+    k2_err, k2_diff = check_blocked(gen, dev, gmm_t)
+    kernel.reset_launches()
+    exp = mups_kernel_exp.main(["--blocks", ",".join(map(str, BLOCKS))])
+    exp_launches = dict(kernel.launches)
+    print(f"mups_kernel_exp: launches {exp_launches}", flush=True)
+    if exp_launches["tdmfv_n_est_blocked"] <= 0:
+        fail("the entry point did not launch the blocked kernel")
+    for r in exp:
+        if not r["max_abs_err"] <= KERNEL_ATOL:
+            fail(f"mups_kernel_exp: block_b={r['block_b']} err {r['max_abs_err']}")
+
     from nestinet_tpu.core.config import Config
     from nestinet_tpu.core.rundir import RunDir
     from nestinet_tpu.data.loader import get_data_loader
     from nestinet_tpu.data.synthetic import build_protocol_benchmark
-    from nestinet_tpu.eval.evaluate import evaluate_dataset
     from nestinet_tpu_torch.core import checkpoint
-    from nestinet_tpu_torch.infer.predict import load_run, pad_batch, predict_shapes
+    from nestinet_tpu_torch.infer.device_pipeline import extract_batch, predict_shapes_device
+    from nestinet_tpu_torch.infer.predict import (
+        load_run, pad_batch, predict_shapes, route_sparse,
+    )
     from nestinet_tpu_torch.models import build_model
     from nestinet_tpu_torch.models.base import init_params
 
@@ -209,11 +408,24 @@ def main(argv=None) -> int:
         data = os.path.join(tmp, "data")
         t0 = time.perf_counter()
         build_protocol_benchmark(data, n_points=N_POINTS, n_pidx=500, seed=SEED % 1000)
-        print(f"dataset: built in {time.perf_counter() - t0:.1f} s", flush=True)
+        with open(os.path.join(data, "testset.txt")) as f:
+            shapes = [s.strip() for s in f if s.strip()]
+        with open(os.path.join(data, "testset_two.txt"), "w") as f:
+            f.write("\n".join(shapes[:2]) + "\n")
+        print(f"dataset: {len(shapes)} shapes x {N_POINTS} points, built in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
 
         cfg = Config(model="experts_n_est", log_dir=os.path.join(tmp, "run"),
                      data_path=data, patch_radius=(0.01, 0.03, 0.05), num_point=512,
-                     num_gaussians=8, n_experts=7, seed=SEED)
+                     num_gaussians=8, n_experts=N_EXPERTS, seed=SEED)
+
+        # ---- 5. device extraction, card against CPU ----
+        grids, queries, radii, bseed, caps = check_extraction(
+            dev, data, shapes[0], cfg.patch_radius)
+        ex_ms = cuda_median_ms(lambda: extract_batch(
+            grids, queries, radii, bseed, num_point=cfg.num_point, caps=caps),
+            warmup=2, iters=10)
+
         rd = RunDir.create(cfg.log_dir)
         cfg.save(rd.config_path)
         run_gmm = get_3d_grid_gmm([8, 8, 8], variance=cfg.gmm_variance)
@@ -222,65 +434,79 @@ def main(argv=None) -> int:
         wgen = torch.Generator().manual_seed(SEED)
         init_params(model, wgen)
         randomize_bn(model, wgen)
-        checkpoint.save(rd.path, model.state_dict())
+        spread_manager_logits(model.to(dev), grids, queries, radii, bseed, caps)
+        checkpoint.save(rd.path, model.cpu().state_dict())
         n_params = sum(v.numel() for v in model.state_dict().values())
         del model
         print(f"run dir: experts_n_est, {n_params} weights", flush=True)
 
-        for k in kernels:
-            k.launches = 0
-        torch.cuda.reset_peak_memory_stats(dev)
-        stats = predict_shapes(rd.path, dataset_name="pcpnet", testset="testset.txt",
-                               data_path=data, batch_size=BATCH, loader_workers=8)
-        launches = {k.name: k.launches for k in kernels}
-        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-        print(f"slice: {stats['n_patches']} patches in {stats['n_batches']} batches, "
-              f"{stats['seconds']:.2f} s, {stats['patches_per_sec']:.1f} patches/s, "
-              f"loader wait {stats['loader_wait_seconds']:.2f} s, peak {peak_gb:.2f} GB, "
-              f"launches {launches} [{card}]", flush=True)
-        for kname, count in launches.items():
-            if count <= 0:
-                fail(f"kernel {kname} was not launched on the main path")
-        if launches["mups_kernel"] != stats["n_batches"]:
-            fail(f"MuPS launches {launches['mups_kernel']} != batches {stats['n_batches']}")
-        if "jax" in sys.modules:
-            fail("jax was imported")
+        # ---- 6. the routed slice: device extraction + argmax-only routing ----
+        dev_sparse = serve("device-sparse", lambda: predict_shapes_device(
+            rd.path, testset="testset.txt", data_path=data, batch_size=DEVICE_BATCH,
+            moe_inference="sparse"), kernel, card)
+        summary = check_outputs(data, dev_sparse["output_dir"], "testset", N_EXPERTS)
+        print(f"evaluate device-sparse: testset RMS {summary['rms']:.4f} deg (random "
+              f"weights), PGP10 {summary['pgp10']:.4f}", flush=True)
+        dev_sparse["rms"] = summary["rms"]
 
-        out_dir = stats["output_dir"]
-        with open(os.path.join(data, "testset.txt")) as f:
-            shapes = [s.strip() for s in f if s.strip()]
-        for shape in shapes:
-            n_pts = np.loadtxt(os.path.join(data, shape + ".xyz")).shape[0]
-            normals = np.loadtxt(os.path.join(out_dir, shape + ".normals"))
-            experts = np.loadtxt(os.path.join(out_dir, shape + ".experts"))
-            if normals.shape != (n_pts, 3) or not np.isfinite(normals).all():
-                fail(f"{shape}.normals: shape {normals.shape} or non-finite values")
-            if experts.shape != (n_pts,) or experts.min() < 0 or experts.max() >= 7:
-                fail(f"{shape}.experts: bad shape or ids out of [0, 7)")
-        summary = evaluate_dataset(data, out_dir, "testset", log=lambda *_: None)
-        if not np.isfinite(summary["rms"]):
-            fail("RMS is not finite")
-        print(f"evaluate: testset RMS {summary['rms']:.4f} deg (random weights), "
-              f"PGP10 {summary['pgp10']:.4f}", flush=True)
+        # ---- 7. host extraction, routed ----
+        host_sparse = serve("host-sparse", lambda: predict_shapes(
+            rd.path, dataset_name="pcpnet_sparse", testset="testset.txt", data_path=data,
+            batch_size=HOST_BATCH, loader_workers=8, moe_inference="sparse"), kernel, card)
+        host_sparse["rms"] = check_outputs(
+            data, host_sparse["output_dir"], "testset", N_EXPERTS)["rms"]
 
-        # one batch: the kernel path against the same model on the plain MuPS
+        # ---- 8. host extraction, dense, on two shapes ----
+        host_dense = serve("host-dense", lambda: predict_shapes(
+            rd.path, dataset_name="pcpnet_dense", testset="testset_two.txt", data_path=data,
+            batch_size=HOST_BATCH, loader_workers=8, moe_inference="dense"), kernel, card)
+        host_dense["rms"] = check_outputs(
+            data, host_dense["output_dir"], "testset_two", N_EXPERTS)["rms"]
+        print(f"evaluate: RMS host-sparse {host_sparse['rms']:.4f} deg, host-dense "
+              f"(two shapes) {host_dense['rms']:.4f} deg (random weights)", flush=True)
+
+        # one device batch routed and dense; one host batch on the plain MuPS
         _, _, _, model = load_run(rd.path, dev)
+        with torch.inference_mode():
+            points, n_eff = extract_batch(grids, queries, radii, bseed,
+                                          num_point=cfg.num_point, caps=caps)
+            grid = model.mups_grid(points, n_eff)
+            real = DEVICE_BATCH - 16  # the last 16 rows stand for padding
+            nrm_s, ids_s, probs_s = route_sparse(model, grid, real)
+            out_d = model.forward_grid(grid)
+            ids_d, probs_d = model.predict_experts(out_d)
+            nrm_d = model.predict_normals(out_d)[:real]
+            torch.cuda.synchronize()
+        counts = torch.bincount(ids_s, minlength=N_EXPERTS).tolist()
+        route_err = (nrm_s - nrm_d).abs().max().item()
+        ids_equal = bool((ids_s == ids_d[:real]).all())
+        print(f"routed vs dense, one device batch: ids equal {ids_equal}, patches per "
+              f"expert {counts}, normals max abs err {route_err:.3e} (atol {NORMALS_ATOL})",
+              flush=True)
+        if not ids_equal:
+            fail("argmax expert ids differ between routed and dense serving")
+        perr = (probs_s - probs_d[:real]).abs().max().item()
+        if not perr <= 1e-6:
+            fail(f"manager probabilities differ between routed and dense serving: {perr}")
+        if not route_err <= NORMALS_ATOL:
+            fail(f"normals differ between routed and dense serving: {route_err}")
+
         loader, _ = get_data_loader(
-            "testset.txt", indir=data, batch_size=BATCH, patch_radius=cfg.patch_radius,
+            "testset.txt", indir=data, batch_size=HOST_BATCH, patch_radius=cfg.patch_radius,
             points_per_patch=cfg.num_point, outputs=(), seed=cfg.seed,
             patch_sample_order="full", workers=8,
         )
-        batch = pad_batch(next(iter(loader)), BATCH)
-        points = torch.from_numpy(batch["points"]).to(dev)
-        n_eff = torch.from_numpy(batch["n_eff"].astype(np.int32)).to(dev)
+        batch = pad_batch(next(iter(loader)), HOST_BATCH)
+        h_points = torch.from_numpy(batch["points"]).to(dev)
+        h_n_eff = torch.from_numpy(batch["n_eff"].astype(np.int32)).to(dev)
         with torch.inference_mode():
-            out_k = model(points, n_eff)
+            out_k = model(h_points, h_n_eff)
             plain_rows = mups_ops.tdmfv_n_est_reference(
-                points.reshape(-1, cfg.num_point, 3), model.gmm_w, model.gmm_mu,
-                model.gmm_sigma, n_eff.reshape(-1),
+                h_points.reshape(-1, cfg.num_point, 3), model.gmm_w, model.gmm_mu,
+                model.gmm_sigma, h_n_eff.reshape(-1),
             )
-            grid = mups_ops.stats_to_grid(plain_rows, BATCH, cfg.n_scales, model.resolution)
-            out_p = model.forward_grid(grid)
+            out_p = model.forward_grid(
+                mups_ops.stats_to_grid(plain_rows, HOST_BATCH, cfg.n_scales, model.resolution))
             torch.cuda.synchronize()
             ids_k, _ = model.predict_experts(out_k)
             ids_p, _ = model.predict_experts(out_p)
@@ -294,38 +520,71 @@ def main(argv=None) -> int:
         if not nerr <= NORMALS_ATOL:
             fail(f"normals differ between the kernel and the plain MuPS: {nerr}")
 
-        # ---- 5. times ----
-        pts, n_eff_rows = flagship_rows(gen, R, N, "random", dev)
-        k_ms = cuda_median_ms(lambda: mups_cuda.tdmfv_n_est_cuda(pts, w, mu, sigma, n_eff_rows))
-        p_ms = cuda_median_ms(
-            lambda: mups_ops.tdmfv_n_est_reference(pts, w, mu, sigma, n_eff_rows))
+        # ---- 9. times ----
+        k1_ms, plain_ms = {}, {}
+        for R in (3 * HOST_BATCH, 3 * DEVICE_BATCH):
+            pts, n_eff_rows = flagship_rows(gen, R, 512, "random", dev)
+            k1_ms[R] = cuda_median_ms(
+                lambda: mups_cuda.tdmfv_n_est_cuda(pts, *gmm_t, n_eff_rows))
+            plain_ms[R] = cuda_median_ms(
+                lambda: mups_ops.tdmfv_n_est_reference(pts, *gmm_t, n_eff_rows),
+                warmup=2, iters=10)
+            print(f"time: MuPS kernel {k1_ms[R]:.4f} ms, plain {plain_ms[R]:.4f} ms per {R} "
+                  f"rows (N=512, K=512) [{card}]", flush=True)
+        blocked = {bb: cuda_median_ms(lambda bb=bb: mups_cuda.tdmfv_n_est_blocked_cuda(
+            pts, *gmm_t, n_eff_rows, bb)) for bb in BLOCKS}
+        print(f"time: blocked MuPS kernel per {R} rows: " + ", ".join(
+            f"block_b={bb} {ms:.4f} ms" for bb, ms in blocked.items()) + f" [{card}]",
+            flush=True)
         with torch.inference_mode():
-            fwd_ms = cuda_median_ms(lambda: model(points, n_eff), warmup=2, iters=10)
-        print(f"time: MuPS kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms per {R} rows "
-              f"(N={N}, K=512); forward {fwd_ms:.3f} ms per batch of {BATCH} "
-              f"({BATCH / fwd_ms * 1e3:.1f} patches/s device-bound) [{card}]", flush=True)
+            fwd_ms = cuda_median_ms(lambda: model(h_points, h_n_eff), warmup=2, iters=10)
+            mgr_ms = cuda_median_ms(lambda: model.manager_probs(grid), warmup=2, iters=10)
+        print(f"time: extraction {ex_ms:.3f} ms per batch of {DEVICE_BATCH} (3 radii, lanes "
+              f"{list(caps)}); dense forward {fwd_ms:.3f} ms per batch of {HOST_BATCH}; "
+              f"manager {mgr_ms:.3f} ms per batch of {DEVICE_BATCH} [{card}]", flush=True)
+        for label, st in (("device-sparse", dev_sparse), ("host-sparse", host_sparse),
+                          ("host-dense", host_dense)):
+            print(f"time: {label} {st['patches_per_sec']:.1f} patches/s, peak "
+                  f"{st['peak_memory_gb']:.2f} GB [{card}]", flush=True)
 
     record.update({
-        "kernel_ms": k_ms, "plain_ms": p_ms, "forward_ms_b128": fwd_ms,
-        "slice": {k: v for k, v in stats.items() if k not in ("shapes", "output_dir")},
-        "peak_memory_gb": peak_gb, "launches": launches, "rms": summary["rms"],
+        "kernel_max_abs_err": k1_err, "blocked_max_abs_err": k2_err,
+        "blocked_max_diff_from_kernel": k2_diff, "kernel_ms": k1_ms, "plain_ms": plain_ms,
+        "blocked_ms": blocked, "mups_kernel_exp": exp, "extract_ms_b256": ex_ms,
+        "forward_ms_b128": fwd_ms, "manager_ms_b256": mgr_ms,
+        "device_sparse": dev_sparse, "host_sparse": host_sparse, "host_dense": host_dense,
+        "routed_vs_dense_normals_max_abs_err": route_err,
         "batch_normals_max_abs_err": nerr,
     })
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)
         with open(args.record, "w") as f:
-            json.dump(record, f, indent=2)
+            json.dump(record, f, indent=2, default=str)
 
-    print(json.dumps({"kernels": [{
-        "name": "tdmfv_n_est",
-        "route": "cuda",
-        "source": "nestinet_tpu_torch/csrc/mups_kernel.cu",
-        "replaces": "nestinet_tpu/ops/pallas/mups_kernel.py:43",
-        "launches": launches["mups_kernel"],
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+    R = 3 * DEVICE_BATCH
+    print(json.dumps({"kernels": [
+        {
+            "name": "tdmfv_n_est",
+            "route": "cuda",
+            "source": "nestinet_tpu_torch/csrc/mups_kernel.cu",
+            "replaces": "nestinet_tpu/ops/pallas/mups_kernel.py:43",
+            "launches": dev_sparse["launches"]["tdmfv_n_est"],
+            "max_abs_err": k1_err,
+            "ms": k1_ms[R],
+            "plain_ms": plain_ms[R],
+        },
+        {
+            "name": "tdmfv_n_est_blocked",
+            "route": "cuda",
+            "source": "nestinet_tpu_torch/csrc/mups_kernel.cu",
+            "replaces": "scripts/mups_kernel_exp.py:32",
+            "launches": exp_launches["tdmfv_n_est_blocked"],
+            "max_abs_err": k2_err,
+            "ms": blocked[max(BLOCKS)],
+            "plain_ms": plain_ms[R],
+            "ms_by_block_b": blocked,
+        },
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -8,16 +8,21 @@ are NumPy-only all the way down (`core.config`, `core.rundir`,
 `core.textio`, `data`, `eval`).
 
 Layout (each module mirrors its counterpart in `nestinet_tpu/`):
-    core/     device resolution, f32 numerics switch, torch checkpoints
-    ops/      grid GMM, MuPS statistics (plain + CUDA kernel), NN blocks
+    core/     device resolution, f32 numerics switch, CUDA-event timing,
+              torch checkpoints
+    ops/      grid GMM, MuPS statistics (plain + CUDA kernels), NN blocks,
+              the grid-hash ball query
     csrc/     CUDA C++ kernel sources, built with nvcc at first use
     models/   backbone specs, the experts_n_est mixture of experts
-    infer/    streaming whole-shape inference + .normals writer
+    infer/    streaming whole-shape inference (host or device extraction,
+              routed or dense MoE) + .normals writer
     cli/      the inference CLI
+    scripts/  the blocked-MuPS-kernel experiment
     convert   haiku <-> torch weight conversion
 
-This first slice serves a trained `experts_n_est` run dir with dense
-float32 mixture-of-experts inference and host (kd-tree) patch extraction.
+Ported so far: serving a trained `experts_n_est` run dir in float32, with
+argmax-only (sparse) or dense mixture-of-experts inference and host
+(kd-tree) or device (grid-hash ball query) patch extraction.
 """
 
 __version__ = "0.1.0"

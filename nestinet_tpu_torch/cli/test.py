@@ -7,11 +7,15 @@ Reloads a run directory's config, GMM and torch checkpoint
 `.experts_probs`) for every shape in the test list, on the GPU.
 
 Example:
-    python -m nestinet_tpu_torch.cli.test --results_path=log/my_experts \
-        --dataset_name=pcpnet --testset=testset.txt --batch_size=128
+    python -m nestinet_tpu_torch.cli.test --results_path=log/my_experts \\
+        --dataset_name=pcpnet --testset=testset.txt --batch_size=128 \\
+        --extraction=device --moe_inference=sparse
 
-Only dense float32 mixture-of-experts inference with host (kd-tree) patch
-extraction is ported; the other modes of the JAX CLI raise.
+Ported: float32 mixture-of-experts inference, routed (sparse, the default)
+or dense, with host (kd-tree) or device (grid-hash ball query) patch
+extraction, on every point or on the `.pidx` subsets (`--sparse_patches=1`).
+Other compute dtypes (the JAX CLI defaults to bfloat16), data-parallel
+serving and BatchNorm folding raise.
 """
 
 from __future__ import annotations
@@ -19,7 +23,14 @@ from __future__ import annotations
 import argparse
 import json
 
-from ..infer.predict import predict_shapes
+from ..infer.device_pipeline import predict_shapes_device
+from ..infer.predict import MOE_INFERENCE, predict_shapes
+
+
+def _refuse(flag: str, value, ported: str) -> None:
+    raise NotImplementedError(
+        f"--{flag}={value} is not ported to PyTorch yet; only {ported} (see ROADMAP.md)"
+    )
 
 
 def main(argv=None):
@@ -30,32 +41,45 @@ def main(argv=None):
     p.add_argument("--dataset_name", type=str, default="pcpnet")
     p.add_argument("--dataset_path", type=str, default=None,
                    help="data directory (default: the run config's data_path)")
-    p.add_argument("--testset", type=str, default="testset.txt")
+    p.add_argument("--sparse_patches", type=int, default=0,
+                   help="1: serve only each shape's .pidx subset")
     p.add_argument("--batch_size", type=int, default=128)
+    p.add_argument("--testset", type=str, default="testset.txt")
     p.add_argument("--loader_workers", type=int, default=8)
-    p.add_argument("--moe_inference", type=str, default="dense",
-                   help="only 'dense' is ported")
+    p.add_argument("--extraction", type=str, default="host", choices=["host", "device"],
+                   help="host: kd-tree patch extraction on CPU threads; device: "
+                        "upload each cloud once and extract with the grid-hash "
+                        "ball query on the GPU")
+    p.add_argument("--moe_inference", type=str, default="sparse", choices=MOE_INFERENCE,
+                   help="sparse (default): each patch through its argmax expert "
+                        "only; dense: every expert on every patch (same outputs)")
     p.add_argument("--compute_dtype", type=str, default="float32",
                    help="only 'float32' is ported")
-    p.add_argument("--extraction", type=str, default="host",
-                   help="only 'host' is ported")
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="not ported: only one GPU serves")
+    p.add_argument("--fold_bn", type=int, default=None,
+                   help="not ported: only --fold_bn=0")
     args = p.parse_args(argv)
-    for flag, ported in (("moe_inference", "dense"), ("compute_dtype", "float32"),
-                         ("extraction", "host")):
-        if getattr(args, flag) != ported:
-            raise NotImplementedError(
-                f"--{flag}={getattr(args, flag)} is not ported to PyTorch yet; "
-                f"only --{flag}={ported} (see ROADMAP.md)"
-            )
+    if args.compute_dtype != "float32":
+        _refuse("compute_dtype", args.compute_dtype, "--compute_dtype=float32")
+    if args.data_parallel > 1:
+        _refuse("data_parallel", args.data_parallel, "one GPU")
+    if args.fold_bn:
+        _refuse("fold_bn", args.fold_bn, "--fold_bn=0")
 
-    stats = predict_shapes(
-        args.results_path,
+    common = dict(
         dataset_name=args.dataset_name,
         testset=args.testset,
         data_path=args.dataset_path,
         batch_size=args.batch_size,
-        loader_workers=args.loader_workers,
+        sparse_patches=bool(args.sparse_patches),
+        moe_inference=args.moe_inference,
     )
+    if args.extraction == "device":
+        stats = predict_shapes_device(args.results_path, **common)
+    else:
+        stats = predict_shapes(args.results_path, loader_workers=args.loader_workers,
+                               **common)
     print(json.dumps({k: v for k, v in stats.items() if k != "shapes"}, indent=2))
 
 

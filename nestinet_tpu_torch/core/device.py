@@ -1,4 +1,4 @@
-"""Device resolution and float32 numerics.
+"""Device resolution, float32 numerics and timing on the card.
 
 No fallback hides the device: `"cuda"` (the default) raises when no GPU is
 present, and the CPU is used only when a caller asks for it by name, as the
@@ -32,3 +32,22 @@ def set_f32_numerics() -> None:
     """
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def cuda_median_ms(fn, warmup: int = 3, iters: int = 20) -> float:
+    """Median milliseconds of `fn()` on the current CUDA stream, by CUDA
+    events around each call, after `warmup` untimed calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]

@@ -32,8 +32,9 @@
 // evaluated: they fold in as one max/min against zero.  No fast-math and
 // no FMA contraction (see below): the kernel buys agreement with the plain
 // version at atol 1e-5 with IEEE divisions it could otherwise avoid.
-// Making it fast (several rows per block, fewer exponentials and
-// divisions, a better wave count) is later work.
+// Making it fast (fewer exponentials and divisions, a better wave count)
+// is later work.  tdmfv_n_est_blocked_kernel below is the several-rows-
+// per-block variant.
 
 #include <cuda_runtime.h>
 
@@ -74,34 +75,31 @@ __device__ __forceinline__ float weighted_pdf(float sx, float sy, float sz,
   return __fmul_rn(__fmul_rn(coef, expf(__fmul_rn(-0.5f, d2))), w);
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-tdmfv_n_est_kernel(const float* __restrict__ points,  // [R, N, 3]
-                   const int* __restrict__ n_eff,     // [R]
-                   const float* __restrict__ w,       // [K]
-                   const float* __restrict__ mu,      // [K, 3]
-                   const float* __restrict__ sigma,   // [K, 3]
-                   float* __restrict__ out,           // [R, 20, K]
-                   int N, int K) {
-  extern __shared__ float smem[];
-  float* s_pts = smem;               // [N, 3]
-  float* s_den = s_pts + 3 * N;      // [N]   sum_k wp
-  float* s_mu = s_den + N;           // [K, 3]
-  float* s_sig = s_mu + 3 * K;       // [K, 3]
-  float* s_coef = s_sig + 3 * K;     // [K]
-  float* s_w = s_coef + K;           // [K]
-  float* s_red = s_w + K;            // [20, 32] per-warp sums of squares
-  float* s_norm = s_red + kChannels * kWarp;  // [20]
+// The Gaussians' constants of one block: mu, sigma, the pdf coefficient
+// and w (8 K floats), loaded once per block.
+struct Gaussians {
+  const float* mu;    // [K, 3]
+  const float* sig;   // [K, 3]
+  const float* coef;  // [K]
+  const float* w;     // [K]
+};
 
-  const int r = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int ne = n_eff[r];
-  const int last = min(ne, N - 1);  // rows 0..last are real (mask n <= n_eff)
-  const float eff = static_cast<float>(max(ne, 1));
+// Shared memory of one block: [N, 3] points, [N] denominators, the
+// Gaussians' constants (8 K), [20, 32] per-warp sums, [20] norms.
+__host__ __device__ constexpr size_t smem_floats(int N, int K) {
+  return 4 * static_cast<size_t>(N) + 8 * static_cast<size_t>(K) +
+         kChannels * kWarp + kChannels;
+}
 
-  const float* pts = points + static_cast<size_t>(r) * N * 3;
-  for (int i = tid; i < 3 * N; i += nthreads) s_pts[i] = pts[i];
-  for (int k = tid; k < K; k += nthreads) {
+__device__ Gaussians load_gaussians(float* smem, int N, int K,
+                                    const float* __restrict__ w,
+                                    const float* __restrict__ mu,
+                                    const float* __restrict__ sigma) {
+  float* s_mu = smem + 4 * N;
+  float* s_sig = s_mu + 3 * K;
+  float* s_coef = s_sig + 3 * K;
+  float* s_w = s_coef + K;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
     for (int d = 0; d < 3; ++d) {
       s_mu[3 * k + d] = mu[3 * k + d];
       s_sig[3 * k + d] = sigma[3 * k + d];
@@ -111,6 +109,37 @@ tdmfv_n_est_kernel(const float* __restrict__ points,  // [R, N, 3]
         1.0f, __fmul_rn(kTwoPiPow1p5, __fmul_rn(__fmul_rn(s0, s0), s0)));
     s_w[k] = w[k];
   }
+  return Gaussians{s_mu, s_sig, s_coef, s_w};
+}
+
+// The [20, K] statistics of one row, computed by the whole block.  Every
+// thread of the block calls it (it synchronises); the caller has stored the
+// Gaussians' constants in shared memory, and the first synchronisation
+// below publishes them with the points.  Back-to-back calls need no barrier
+// in between: a thread starts the next row only after the last barrier
+// here, which every thread reaches after its reads of the points and
+// denominators, and every shared array is next written only after a
+// barrier that follows all its reads.  Both kernels compute each row
+// through this function, so their outputs are identical.
+__device__ void row_stats(const float* __restrict__ pts,  // [N, 3]
+                          const int ne, const Gaussians g, float* smem,
+                          float* __restrict__ o,  // [20, K]
+                          int N, int K) {
+  float* s_pts = smem;                               // [N, 3]
+  float* s_den = s_pts + 3 * N;                      // [N]   sum_k wp
+  float* s_red = smem + smem_floats(N, K) - kChannels * kWarp - kChannels;
+  float* s_norm = s_red + kChannels * kWarp;         // [20]
+  const float* s_mu = g.mu;
+  const float* s_sig = g.sig;
+  const float* s_coef = g.coef;
+  const float* s_w = g.w;
+
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int last = min(ne, N - 1);  // rows 0..last are real (mask n <= n_eff)
+  const float eff = static_cast<float>(max(ne, 1));
+
+  for (int i = tid; i < 3 * N; i += nthreads) s_pts[i] = pts[i];
   __syncthreads();
 
   // Pass 1: threads over points, the soft-assignment denominator of each.
@@ -219,37 +248,110 @@ tdmfv_n_est_kernel(const float* __restrict__ points,  // [R, N, 3]
   __syncthreads();
 
   if (k < K) {
-    float* o = out + static_cast<size_t>(r) * kChannels * K;
 #pragma unroll
     for (int c = 0; c < kChannels; ++c) o[c * K + k] = __fmul_rn(v[c], s_norm[c]);
   }
+}
+
+// One block per row.
+__global__ void __launch_bounds__(kMaxThreads)
+tdmfv_n_est_kernel(const float* __restrict__ points,  // [R, N, 3]
+                   const int* __restrict__ n_eff,     // [R]
+                   const float* __restrict__ w,       // [K]
+                   const float* __restrict__ mu,      // [K, 3]
+                   const float* __restrict__ sigma,   // [K, 3]
+                   float* __restrict__ out,           // [R, 20, K]
+                   int N, int K) {
+  extern __shared__ float smem[];
+  const int r = blockIdx.x;
+  const Gaussians g = load_gaussians(smem, N, K, w, mu, sigma);
+  row_stats(points + static_cast<size_t>(r) * N * 3, n_eff[r], g, smem,
+            out + static_cast<size_t>(r) * kChannels * K, N, K);
+}
+
+// Replaces scripts/mups_kernel_exp.py::_kernel_blocked (launched by
+// forward_blocked): one block per `block_b` consecutive rows, R / block_b
+// blocks.  The Gaussians' constants (8 K floats, 16 KB at K = 512) are
+// loaded into shared memory once per block, and the block walks its rows
+// in a loop, which stands in for the TPU program's sequential
+// `for j in range(block_b)`.  Bound, like the kernel above, by FP32 and
+// SFU work, not by memory: a block saves only the reload of 16 KB per row.
+// It also has fewer blocks: at R = 768 and block_b = 8 the grid is 96
+// blocks on 132 SMs, so block_b > 1 trades parallelism for that reuse.
+__global__ void __launch_bounds__(kMaxThreads)
+tdmfv_n_est_blocked_kernel(const float* __restrict__ points,  // [R, N, 3]
+                           const int* __restrict__ n_eff,     // [R]
+                           const float* __restrict__ w,       // [K]
+                           const float* __restrict__ mu,      // [K, 3]
+                           const float* __restrict__ sigma,   // [K, 3]
+                           float* __restrict__ out,           // [R, 20, K]
+                           int N, int K, int block_b) {
+  extern __shared__ float smem[];
+  const Gaussians g = load_gaussians(smem, N, K, w, mu, sigma);
+  for (int j = 0; j < block_b; ++j) {
+    const int r = blockIdx.x * block_b + j;
+    row_stats(points + static_cast<size_t>(r) * N * 3, n_eff[r], g, smem,
+              out + static_cast<size_t>(r) * kChannels * K, N, K);
+  }
+}
+
+// Threads and dynamic shared memory of a launch; raises the kernel's
+// shared-memory limit above 48 KB when it needs more.
+template <typename Kernel>
+cudaError_t launch_shape(Kernel kernel, int N, int K, int* threads,
+                         size_t* smem) {
+  if (N <= 0 || K <= 0 || K > kMaxThreads) return cudaErrorInvalidValue;
+  *threads = ((K + kWarp - 1) / kWarp) * kWarp;
+  *smem = sizeof(float) * smem_floats(N, K);
+  if (*smem > 48 * 1024) {
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(*smem));
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream` over R rows.  Returns the CUDA error code
-// of the launch (0 on success); allocates nothing and does not synchronise.
+// Launches the one-row-per-block kernel on `stream` over R rows.  Returns
+// the CUDA error code of the launch (0 on success); allocates nothing and
+// does not synchronise.
 int tdmfv_n_est_launch(const void* points, const void* n_eff, const void* w,
                        const void* mu, const void* sigma, void* out, int R,
                        int N, int K, void* stream) {
   if (R <= 0) return 0;
-  if (N <= 0 || K <= 0 || K > kMaxThreads) return cudaErrorInvalidValue;
-  const int threads = ((K + kWarp - 1) / kWarp) * kWarp;
-  const size_t smem =
-      sizeof(float) * (4 * static_cast<size_t>(N) + 8 * static_cast<size_t>(K) +
-                       kChannels * kWarp + kChannels);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tdmfv_n_est_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  int threads;
+  size_t smem;
+  const cudaError_t err = launch_shape(tdmfv_n_est_kernel, N, K, &threads, &smem);
+  if (err != cudaSuccess) return err;
   tdmfv_n_est_kernel<<<R, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(points), static_cast<const int*>(n_eff),
       static_cast<const float*>(w), static_cast<const float*>(mu),
       static_cast<const float*>(sigma), static_cast<float*>(out), N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the blocked kernel: R / block_b blocks of block_b rows each.
+// R must be a multiple of block_b (cudaErrorInvalidValue otherwise).
+int tdmfv_n_est_blocked_launch(const void* points, const void* n_eff,
+                               const void* w, const void* mu,
+                               const void* sigma, void* out, int R, int N,
+                               int K, int block_b, void* stream) {
+  if (block_b <= 0 || R % block_b != 0) return cudaErrorInvalidValue;
+  if (R <= 0) return 0;
+  int threads;
+  size_t smem;
+  const cudaError_t err =
+      launch_shape(tdmfv_n_est_blocked_kernel, N, K, &threads, &smem);
+  if (err != cudaSuccess) return err;
+  tdmfv_n_est_blocked_kernel<<<R / block_b, threads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(points), static_cast<const int*>(n_eff),
+      static_cast<const float*>(w), static_cast<const float*>(mu),
+      static_cast<const float*>(sigma), static_cast<float*>(out), N, K,
+      block_b);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,12 +1,22 @@
-"""Streaming whole-shape inference, dense float32 mixture of experts.
+"""Streaming whole-shape inference, float32 mixture of experts, routed or
+dense.
 
 Counterpart of `nestinet_tpu/infer/predict.py` (`load_run:89`,
-`restore_model:154`, `predict_shapes:239` in its dense branch `:316-409`,
+`restore_model:154`, `predict_shapes:239`, `SparseMoeRouter:423`,
 `_pad_batch:876`): reload a run directory's config, GMM and torch
-checkpoint, walk every point of every test shape in order with the JAX
-package's own host (kd-tree) loader, zero-pad the last partial batch to
-the batch size (its padded rows have n_eff = 0), and scatter the outputs
-into `<shape>.normals`, `.experts` and `.experts_probs`.
+checkpoint, walk every point of every test shape in order (or only each
+shape's `.pidx` subset, with `sparse_patches`) with the JAX package's own
+host (kd-tree) loader, zero-pad the last partial batch to the batch size
+(its padded rows have n_eff = 0), and scatter the outputs into
+`<shape>.normals`, `.experts` and `.experts_probs`.
+
+`moe_inference="sparse"` (the default, as in JAX) computes the MuPS grid
+once, runs the manager on the whole padded batch and then each real patch
+through its argmax expert only (`route_sparse`); `"dense"` runs every
+expert on every patch and keeps the argmax expert's normal.  Both give the
+same outputs.  The JAX router's FIFO slots, eviction and pipeline depth
+exist for XLA's static shapes and are not ported: here each batch is
+routed by `index_select` and `index_copy` per expert.
 """
 
 from __future__ import annotations
@@ -32,6 +42,12 @@ def load_run(run_dir: str, device: torch.device):
     `device`, in eval mode."""
     rd = RunDir.open(run_dir)
     cfg = Config.load(rd.config_path)
+    if cfg.compute_dtype != "float32":
+        # JAX serves such a run in its compute dtype; only float32 is ported
+        raise NotImplementedError(
+            f"the run's compute_dtype={cfg.compute_dtype} is not ported to PyTorch yet; "
+            "only float32 (see ROADMAP.md)"
+        )
     gmm = GridGMM.load(rd.gmm_path)
     model = build_model(cfg, gmm).to(device)
     model.load_state_dict(checkpoint.load(rd.path, device)["state_dict"])
@@ -51,6 +67,52 @@ def pad_batch(batch: dict, batch_size: int) -> dict:
     return out
 
 
+MOE_INFERENCE = ("sparse", "dense")
+
+
+def route_sparse(model, grid: torch.Tensor, real: int):
+    """Argmax-only mixture of experts on a [B, r, r, r, C] grid whose first
+    `real` rows are real patches (the rest are padding).
+
+    The manager runs on the whole padded batch; each real patch then runs
+    through exactly one expert, its argmax (first maximum on ties, as
+    jnp.argmax): per expert with any rows, `index_select` its patches'
+    grids, run the expert, `index_copy` the normals back.  Padded rows
+    never reach an expert.
+
+    Returns (normals [real, 3], expert ids [real], probabilities
+    [real, E]), the ids and probabilities being the manager's.
+    """
+    probs = model.manager_probs(grid)[:, :real]  # [E, real]
+    ids = torch.argmax(probs, dim=0)
+    counts = torch.bincount(ids, minlength=model.n_experts).tolist()
+    order = torch.argsort(ids, stable=True)  # patches grouped by expert
+    normals = torch.empty((real, 3), dtype=torch.float32, device=grid.device)
+    start = 0
+    for e, n in enumerate(counts):
+        if n == 0:
+            continue
+        rows = order[start : start + n]
+        start += n
+        normals.index_copy_(0, rows, model.expert_on_grid(e, grid.index_select(0, rows)))
+    return normals, ids, probs.t()
+
+
+def serve_grid(model, grid: torch.Tensor, real: int, moe_inference: str):
+    """(normals [real, 3], expert ids [real], probabilities [real, E]) of
+    one padded batch's grid, routed (`route_sparse`) or dense."""
+    if moe_inference == "sparse":
+        return route_sparse(model, grid, real)
+    outputs = model.forward_grid(grid)
+    ids, probs = model.predict_experts(outputs)
+    return model.predict_normals(outputs)[:real], ids[:real], probs[:real]
+
+
+def check_moe_inference(moe_inference: str) -> None:
+    if moe_inference not in MOE_INFERENCE:
+        raise ValueError(f"moe_inference must be one of {MOE_INFERENCE}, got {moe_inference!r}")
+
+
 def predict_shapes(
     run_dir: str,
     *,
@@ -58,11 +120,16 @@ def predict_shapes(
     testset: str = "testset.txt",
     data_path: str | None = None,
     batch_size: int = 128,
+    sparse_patches: bool = False,
     loader_workers: int = 8,
     output_dir: str | None = None,
+    moe_inference: str = "sparse",
     device: str | torch.device = "cuda",
 ) -> dict:
-    """Dense MoE inference for every shape in `testset`; returns stats."""
+    """MoE inference with host patch extraction for every shape in
+    `testset` (or each shape's `.pidx` subset with `sparse_patches`);
+    returns stats, `expert_rows` counting the patches each expert served."""
+    check_moe_inference(moe_inference)
     dev = resolve_device(device)
     set_f32_numerics()
     rd, cfg, gmm, model = load_run(run_dir, dev)
@@ -82,6 +149,7 @@ def predict_shapes(
         cache_capacity=cfg.cache_capacity,
         patch_sample_order="full",
         workers=loader_workers,
+        sparse_patches=sparse_patches,
     )
     writer = ShapeScatterWriter(
         out_dir, dataset.shape_names, dataset.shape_patch_count,
@@ -89,6 +157,7 @@ def predict_shapes(
     )
 
     n_patches = n_batches = 0
+    expert_rows = np.zeros(cfg.n_experts, np.int64)
     loader_wait = 0.0
     t0 = time.perf_counter()
     batches = iter(loader)
@@ -103,14 +172,11 @@ def predict_shapes(
             batch = pad_batch(batch, batch_size)
             points = torch.from_numpy(batch["points"]).to(dev)
             n_eff = torch.from_numpy(batch["n_eff"].astype(np.int32)).to(dev)
-            outputs = model(points, n_eff)
-            normals = model.predict_normals(outputs)[:real]
-            experts, probs = model.predict_experts(outputs)
-            writer.append(
-                normals.cpu().numpy(),
-                experts[:real].cpu().numpy(),
-                probs[:real].cpu().numpy(),
-            )
+            grid = model.mups_grid(points, n_eff)
+            normals, experts, probs = serve_grid(model, grid, real, moe_inference)
+            experts = experts.cpu().numpy()
+            expert_rows += np.bincount(experts, minlength=cfg.n_experts)
+            writer.append(normals.cpu().numpy(), experts, probs.cpu().numpy())
             n_patches += real
             n_batches += 1
     elapsed = time.perf_counter() - t0
@@ -123,6 +189,8 @@ def predict_shapes(
         "seconds": elapsed,
         "loader_wait_seconds": loader_wait,
         "patches_per_sec": n_patches / elapsed if elapsed > 0 else float("inf"),
+        "moe_inference": moe_inference,
+        "expert_rows": expert_rows.tolist(),
         "shapes": writer.written,
         "output_dir": out_dir,
         "device": str(dev),

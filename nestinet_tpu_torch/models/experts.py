@@ -1,4 +1,4 @@
-"""Nesti-Net mixture-of-experts normal estimation (flagship model), dense
+"""Nesti-Net mixture-of-experts normal estimation (flagship model),
 inference.
 
 Counterpart of `nestinet_tpu/models/experts.py`:
@@ -8,8 +8,11 @@ Counterpart of `nestinet_tpu/models/experts.py`:
   * n_experts expert CNNs, each on its scales' 20-channel slice starting at
     min(scales)*20, first inception width 128 // len(scales) (42 for the
     3-scale expert) (`:66-73`, `:50`);
-  * dense inference: every expert runs on every patch, the argmax expert's
-    normal is kept (first maximum on ties, as jnp.argmax).
+  * dense inference (`forward_grid`): every expert runs on every patch,
+    the argmax expert's normal is kept (first maximum on ties, as
+    jnp.argmax); routed inference (`infer/predict.py::route_sparse`) runs
+    `manager_probs` and then each patch's argmax expert only, through the
+    same two grid-level methods.
 
 The reference stacks the experts of one scale count and vmaps them; here
 they are a `ModuleList` in reference expert order, which computes the same
@@ -92,18 +95,24 @@ class ExpertsNormEst(ModelBase):
                 self.slices[i] = (start, start + g.channels)
         self.experts = torch.nn.ModuleList(experts)
 
+    def manager_probs(self, grid: torch.Tensor) -> torch.Tensor:
+        """Manager CNN on a [B, r, r, r, C] grid -> float32 probabilities
+        [E, B] (`apply_manager_on_grid`, JAX `experts.py:219-225`)."""
+        logits = self.manager(grid.permute(0, 4, 1, 2, 3))  # NCDHW
+        return torch.softmax(logits.to(torch.float32), dim=-1).t()
+
+    def expert_on_grid(self, i: int, grid: torch.Tensor) -> torch.Tensor:
+        """Expert `i` on its channel slice of a [b, r, r, r, C] grid ->
+        normals [b, 3] (`apply_expert_member_on_grid`, JAX
+        `experts.py:227-251`)."""
+        lo, hi = self.slices[i]
+        return self.experts[i](grid[..., lo:hi].permute(0, 4, 1, 2, 3)).to(torch.float32)
+
     def forward_grid(self, grid: torch.Tensor) -> dict:
         """Dense MoE on a [B, r, r, r, C] grid -> {"n_pred": [E, B, 3],
-        "experts_prob": [E, B]}."""
-        x = grid.permute(0, 4, 1, 2, 3)  # NCDHW
-        logits = self.manager(x)
-        probs = torch.softmax(logits.to(torch.float32), dim=-1).t()
-        n_pred = torch.stack(
-            [
-                expert(x[:, lo:hi]).to(torch.float32)
-                for expert, (lo, hi) in zip(self.experts, self.slices)
-            ]
-        )
+        "experts_prob": [E, B]}: every expert on every patch."""
+        probs = self.manager_probs(grid)
+        n_pred = torch.stack([self.expert_on_grid(i, grid) for i in range(self.n_experts)])
         return {"n_pred": n_pred, "experts_prob": probs}
 
     def forward(self, points: torch.Tensor, n_eff: torch.Tensor) -> dict:

@@ -47,14 +47,15 @@ def _nvcc() -> str:
 class CudaKernel:
     """One `csrc/<name>.cu` library: built and loaded at first use.
 
-    `launches` counts the kernel launches made through this library; the
-    wrapper adds one where it launches the kernel, and nowhere else.
+    `launches[kernel]` counts the launches of each kernel the library
+    holds; the wrapper of a kernel adds one where it launches it, and
+    nowhere else.
     """
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, kernels: tuple[str, ...]):
         self.name = name
         self.source = os.path.join(CSRC_DIR, name + ".cu")
-        self.launches = 0
+        self.launches = dict.fromkeys(kernels, 0)
         self.ptxas_log = ""
         self._lib = None
         self._lock = threading.Lock()
@@ -91,6 +92,10 @@ class CudaKernel:
                 lib.cuda_error_string.restype = ctypes.c_char_p
                 self._lib = lib
             return self._lib
+
+    def reset_launches(self) -> None:
+        for kernel in self.launches:
+            self.launches[kernel] = 0
 
     def check(self, code: int) -> None:
         """Raise on a non-zero CUDA error code returned by a launch."""

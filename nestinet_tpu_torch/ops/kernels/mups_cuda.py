@@ -1,10 +1,14 @@
-"""ctypes wrapper of the MuPS CUDA kernel (`csrc/mups_kernel.cu`).
+"""ctypes wrappers of the MuPS CUDA kernels (`csrc/mups_kernel.cu`).
 
-Counterpart of `nestinet_tpu/ops/pallas/mups_kernel.py::_forward`.  The
-wrapper checks what it is given, allocates the output with `torch.empty`,
-launches on the current stream and raises on a launch error.  It never
-falls back: a tensor that is not a contiguous float32 CUDA tensor raises.
-`KERNEL.launches` counts its launches.
+`tdmfv_n_est_cuda` is the counterpart of
+`nestinet_tpu/ops/pallas/mups_kernel.py::_forward` (one block per row);
+`tdmfv_n_est_blocked_cuda` the counterpart of
+`scripts/mups_kernel_exp.py::forward_blocked` (`block_b` rows per block).
+Each wrapper checks what it is given, allocates the output with
+`torch.empty`, launches on the current stream and raises on a launch error.
+They never fall back: a tensor that is not a contiguous float32 CUDA tensor
+raises.  `KERNEL.launches["tdmfv_n_est"]` and
+`KERNEL.launches["tdmfv_n_est_blocked"]` count their launches apart.
 """
 
 from __future__ import annotations
@@ -17,13 +21,13 @@ from .build import CudaKernel
 
 N_CHANNELS = 20
 
-KERNEL = CudaKernel("mups_kernel")
+KERNEL = CudaKernel("mups_kernel", ("tdmfv_n_est", "tdmfv_n_est_blocked"))
 
 
-def _bind(lib):
-    fn = lib.tdmfv_n_est_launch
+def _bind(lib, name: str, n_ints: int):
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -39,14 +43,8 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, devic
         raise ValueError(f"{name} must be contiguous")
 
 
-def tdmfv_n_est_cuda(
-    points: torch.Tensor,
-    w: torch.Tensor,
-    mu: torch.Tensor,
-    sigma: torch.Tensor,
-    n_eff: torch.Tensor,
-) -> torch.Tensor:
-    """[R, N, 3] f32 points, [R] i32 n_eff -> [R, 20, K] f32, on the card."""
+def _checked(points, w, mu, sigma, n_eff):
+    """Validate the kernels' inputs; returns (R, N, K)."""
     if points.device.type != "cuda":
         raise ValueError(f"the MuPS kernel runs on CUDA tensors, got {points.device}")
     if points.dim() != 3 or points.shape[-1] != 3:
@@ -63,16 +61,51 @@ def tdmfv_n_est_cuda(
         raise ValueError(f"the MuPS kernel takes 1..1024 Gaussians, got {K}")
     if N <= 0:
         raise ValueError("points must hold at least one row per patch")
+    return R, N, K
+
+
+def _launch(kernel: str, points, w, mu, sigma, n_eff, *ints) -> torch.Tensor:
+    R, N, K = points.shape[0], points.shape[1], mu.shape[0]
+    dev = points.device
     out = torch.empty((R, N_CHANNELS, K), dtype=torch.float32, device=dev)
     if R == 0:
         return out
-    fn = _bind(KERNEL.lib())
+    fn = _bind(KERNEL.lib(), kernel + "_launch", 3 + len(ints))
     with torch.cuda.device(dev):  # the launch goes to the tensors' card
         code = fn(
             points.data_ptr(), n_eff.data_ptr(), w.data_ptr(), mu.data_ptr(),
-            sigma.data_ptr(), out.data_ptr(), R, N, K,
+            sigma.data_ptr(), out.data_ptr(), R, N, K, *ints,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     KERNEL.check(code)
-    KERNEL.launches += 1
+    KERNEL.launches[kernel] += 1
     return out
+
+
+def tdmfv_n_est_cuda(
+    points: torch.Tensor,
+    w: torch.Tensor,
+    mu: torch.Tensor,
+    sigma: torch.Tensor,
+    n_eff: torch.Tensor,
+) -> torch.Tensor:
+    """[R, N, 3] f32 points, [R] i32 n_eff -> [R, 20, K] f32, on the card;
+    one block per row."""
+    _checked(points, w, mu, sigma, n_eff)
+    return _launch("tdmfv_n_est", points, w, mu, sigma, n_eff)
+
+
+def tdmfv_n_est_blocked_cuda(
+    points: torch.Tensor,
+    w: torch.Tensor,
+    mu: torch.Tensor,
+    sigma: torch.Tensor,
+    n_eff: torch.Tensor,
+    block_b: int,
+) -> torch.Tensor:
+    """The same statistics with `block_b` consecutive rows per block; R must
+    be a multiple of `block_b`.  Bit-identical to `tdmfv_n_est_cuda`."""
+    R, _, _ = _checked(points, w, mu, sigma, n_eff)
+    if block_b <= 0 or R % block_b != 0:
+        raise ValueError(f"{R} rows do not divide into blocks of {block_b}")
+    return _launch("tdmfv_n_est_blocked", points, w, mu, sigma, n_eff, int(block_b))

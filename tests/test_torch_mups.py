@@ -172,4 +172,4 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         mups_cuda.tdmfv_n_est_cuda(
             torch.zeros(2, 8, 3), w, mu, sigma, torch.zeros(2, dtype=torch.int32)
         )
-    assert mups_cuda.KERNEL.launches == 0
+    assert mups_cuda.KERNEL.launches == {"tdmfv_n_est": 0, "tdmfv_n_est_blocked": 0}

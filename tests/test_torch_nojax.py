@@ -2,7 +2,8 @@
 imports: the GPU machine it serves on has none of them.
 
 A subprocess blocks those packages in `sys.modules` before anything else,
-imports every module of the serving slice, and runs a tiny CPU forward.
+imports every module of the port, and runs a tiny CPU forward, dense and
+routed on device-extracted patches.
 """
 
 import os
@@ -33,6 +34,9 @@ SCRIPT = textwrap.dedent(
         "nestinet_tpu_torch.convert",
         "nestinet_tpu_torch.infer.writer",
         "nestinet_tpu_torch.infer.predict",
+        "nestinet_tpu_torch.infer.device_pipeline",
+        "nestinet_tpu_torch.ops.ball_query",
+        "nestinet_tpu_torch.scripts.mups_kernel_exp",
         "nestinet_tpu_torch.cli.test",
         "nestinet_tpu.eval.evaluate",
         "nestinet_tpu.data.synthetic",
@@ -58,6 +62,19 @@ SCRIPT = textwrap.dedent(
         normals = model.predict_normals(out)
     assert normals.shape == (4, 3) and torch.isfinite(normals).all()
     assert out["experts_prob"].shape == (7, 4)
+
+    from nestinet_tpu_torch.infer.device_pipeline import extract_batch
+    from nestinet_tpu_torch.infer.predict import route_sparse
+    from nestinet_tpu_torch.ops.ball_query import build_grid
+
+    cloud = torch.rand((200, 3), generator=g)
+    radii = (0.2, 0.3, 0.4)
+    grids = [build_grid(cloud, r) for r in radii]
+    pts, ne = extract_batch(grids, cloud[:4], radii, 7, num_point=8, caps=(64,) * 3)
+    with torch.inference_mode():
+        normals, ids, probs = route_sparse(model, model.mups_grid(pts, ne), 3)
+    assert normals.shape == (3, 3) and torch.isfinite(normals).all()
+    assert ids.shape == (3,) and probs.shape == (3, 7)
     assert all(sys.modules.get(n) is None for n in ("jax", "haiku", "flax"))
     print("NOJAX_OK")
     """

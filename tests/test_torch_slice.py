@@ -3,8 +3,9 @@
 One tiny-backbone `experts_n_est` run dir holds a JAX checkpoint and the
 same weights converted to the port's torch checkpoint.  JAX
 `predict_shapes(moe_inference="dense", compute_dtype="float32")` and the
-port's `predict_shapes(device="cpu")` serve the synthetic protocol
-testset into two output dirs (the last batch is zero-padded, so rows with
+port's `predict_shapes(device="cpu", moe_inference="dense")` serve the
+synthetic protocol testset into two output dirs (the last batch is
+zero-padded, so rows with
 n_eff = 0 go through both).  Bars: `.normals` within atol 1e-4
 elementwise (float32, different summation orders), `.experts`
 identical, evaluate.py RMS within 0.01 degrees.
@@ -69,12 +70,11 @@ def _spread_manager_logits(params, state, cfg, gmm, data):
     last["b"] = (1.0 - z.mean(axis=0) * scale).astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def served(tmp_path_factory):
-    root = str(tmp_path_factory.mktemp("torch_slice"))
-    data = os.path.join(root, "data")
-    build_protocol_benchmark(data, n_points=N_POINTS, n_pidx=100, seed=5)
-
+def build_run(root: str, data: str) -> str:
+    """A tiny-backbone `experts_n_est` run dir over `data` holding a JAX
+    checkpoint (random weights and BN state from a seed, manager logits
+    spread) and the same weights converted to the port's torch checkpoint;
+    returns its path."""
     cfg = tiny_cfg(log_dir=os.path.join(root, "run"), data_path=data,
                    num_gaussians=3, gmm_variance=1.0 / 9, num_point=16,
                    patch_radius=(0.05, 0.1, 0.2))
@@ -93,15 +93,30 @@ def served(tmp_path_factory):
     jax_ckpt.save(rd.ckpt_dir, params=params, state=state,
                   opt_state=make_optimizer(cfg).init(params), step=0, epoch=0)
     checkpoint.save(rd.path, convert.from_haiku(params, state, cfg))
+    return rd.path
+
+
+def build_data(root: str) -> str:
+    """The synthetic protocol testset: 6 shapes x 300 points, 100 pidx."""
+    data = os.path.join(root, "data")
+    build_protocol_benchmark(data, n_points=N_POINTS, n_pidx=100, seed=5)
+    return data
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("torch_slice"))
+    data = build_data(root)
+    run_path = build_run(root, data)
 
     common = dict(testset="testset.txt", data_path=data, batch_size=BATCH,
-                  loader_workers=2)
+                  loader_workers=2, moe_inference="dense")
     jax_stats = jax_predict_shapes(
-        rd.path, output_dir=os.path.join(root, "jax"), moe_inference="dense",
-        compute_dtype="float32", **common,
+        run_path, output_dir=os.path.join(root, "jax"), compute_dtype="float32",
+        **common,
     )
     port_stats = predict_shapes(
-        rd.path, output_dir=os.path.join(root, "port"), device="cpu", **common
+        run_path, output_dir=os.path.join(root, "port"), device="cpu", **common
     )
     return data, jax_stats, port_stats
 
@@ -146,13 +161,41 @@ def test_slice_rms_matches_jax(served):
 
 
 @pytest.mark.parametrize("flag", [
-    "--moe_inference=sparse", "--compute_dtype=bfloat16", "--extraction=device",
+    "--compute_dtype=int8", "--data_parallel=2", "--fold_bn=1",
 ])
 def test_cli_refuses_unported_modes(flag):
     from nestinet_tpu_torch.cli import test as cli_test
 
     with pytest.raises(NotImplementedError, match="not ported"):
         cli_test.main(["--results_path=unused", flag])
+
+
+@pytest.mark.parametrize("extraction", ["device", "host"])
+def test_cli_accepts_routed_modes(monkeypatch, capsys, extraction):
+    """Routed serving is the CLI's default, with either extraction; each
+    goes to its serving function with the flags it was given."""
+    from nestinet_tpu_torch.cli import test as cli_test
+
+    calls = []
+
+    def fake(name):
+        def serve(run_dir, **kw):
+            calls.append((name, run_dir, kw))
+            return {"n_patches": 0, "shapes": []}
+        return serve
+
+    monkeypatch.setattr(cli_test, "predict_shapes_device", fake("device"))
+    monkeypatch.setattr(cli_test, "predict_shapes", fake("host"))
+    cli_test.main(["--results_path=run", f"--extraction={extraction}",
+                   "--moe_inference=sparse", "--sparse_patches=1", "--batch_size=256"])
+    ((name, run_dir, kw),) = calls
+    assert (name, run_dir) == (extraction, "run")
+    assert kw["moe_inference"] == "sparse" and kw["sparse_patches"] is True
+    assert kw["batch_size"] == 256
+    assert '"n_patches": 0' in capsys.readouterr().out
+    calls.clear()
+    cli_test.main(["--results_path=run", f"--extraction={extraction}"])
+    assert calls[0][2]["moe_inference"] == "sparse"  # the JAX CLI's default
 
 
 def test_default_device_never_falls_back_to_cpu(served):
