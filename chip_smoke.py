@@ -7,9 +7,10 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
   1. device: require CUDA, print the card's name and power limit, turn
      TF32 off (the JAX reference computes in float32);
-  2. build: compile the one CUDA library (`csrc/mups_kernel.cu`, which
-     holds both MuPS kernels) with nvcc into the gitignored build
-     directory; print its ptxas lines;
+  2. build: compile both CUDA libraries (`csrc/mups_kernel.cu`, the two
+     MuPS kernels, and `csrc/int8_conv.cu`, the int8 conv) with nvcc into
+     the gitignored build directory, one nvcc per library, started
+     together; print their ptxas lines;
   3. MuPS kernel (one block per row) against its plain PyTorch version at
      the serving shapes (384 and 768 rows of 512 points, 512 Gaussians),
      unpadded, randomly padded and with n_eff = 0 rows, at atol 1e-5; its
@@ -18,26 +19,45 @@ and prints no result):
      the plain version at atol 1e-5 on the same three row sets, and against
      the first kernel (identical); 766 rows in blocks of 4 raise; then its
      entry point, `nestinet_tpu_torch.scripts.mups_kernel_exp.main`;
-  5. device extraction: one batch of 256 queries per radius of the
+  5. int8 conv kernel against its plain version (an exact integer conv in
+     float64 and the same float32 epilogue) at every distinct conv of the
+     flagship manager and both expert widths at B = 256, and every FC
+     layer at B = 256 and at a routed sub-batch of 37: outputs identical;
+     its time, and the plain version's, at the widest conv;
+  6. device extraction: one batch of 256 queries per radius of the
      flagship config on one synthetic shape, extracted on the card and on
      the CPU from the same inputs: grids, selected rows, hit masks and
      n_eff identical;
-  6. the routed slice: a full-width `experts_n_est` run dir (3 radii, 512
+  7. the routed slice: a full-width `experts_n_est` run dir (3 radii, 512
      points, 8^3 Gaussians, 7 experts, random weights and BatchNorm state
      from a seed, the manager's last layer rescaled so that patches route
-     to several experts) serves the 6-shape synthetic testset (30,000 patches)
-     through `predict_shapes_device` (device extraction, argmax-only
-     routing, batch 256): one MuPS launch per batch, finite normals, ids in
-     [0, 7), a finite RMS from `eval/evaluate.py`;
-  7. the host routed path (`predict_shapes`, kd-tree extraction, batch
+     to several experts) serves the 6-shape synthetic testset (30,000
+     patches) in float32 through `predict_shapes_device` (device
+     extraction, argmax-only routing, batch 256): one MuPS launch per
+     batch, finite normals, ids in [0, 7), a finite RMS from
+     `eval/evaluate.py`;
+  8. the host routed path (`predict_shapes`, kd-tree extraction, batch
      128) on the same run dir and testset, checked the same way;
-  8. the host dense path on two of the shapes, checked the same way; then
+  9. the host dense path on two of the shapes, checked the same way; then
      one device-extracted batch routed and dense (identical ids, normals at
      atol 1e-4) and one host batch against the same model on the plain
      MuPS;
-  9. times: both kernels and the plain version (CUDA events, median after
-     warm-up), extraction per batch, the forward, and each serving path's
-     patches/s and peak memory.
+ 10. the serving dtypes: device-sparse in bfloat16, in bfloat16 with
+     BatchNorm folded and in int8, each on the 30,000 patches, checked as
+     in phase 7; the int8 path must launch the int8 kernel and the others
+     must not;
+ 11. one device batch in each dtype, routed and dense: manager ids
+     identical (under int8 too: the manager sees the same batch), bfloat16
+     normals within 5% of the largest |normal| (cuDNN may sum a sub-batch
+     in another order); each dtype's agreement with float32 printed, not
+     held (random weights); the manager's time and its device-time split
+     (convolutions, int8 kernel) in each dtype;
+ 12. times: both MuPS kernels and their plain version (CUDA events, median
+     after warm-up), extraction per batch, the forward, and each serving
+     path's patches/s and peak memory.
+
+The script ran in 258 s on an H100 (a fifth of its 1,200 s limit), so
+the only cut of depth is host-dense's, which serves two of the six shapes.
 
 Each serving path and the kernels' entry point run with the launch counts
 set to 0 just before and read just after; a kernel of the path that was
@@ -63,9 +83,15 @@ DEVICE_BATCH = 256
 N_POINTS = 5000  # points per synthetic shape; the testset has 6 shapes
 N_EXPERTS = 7
 BLOCKS = (1, 2, 4, 8)
+INT8_BATCH = 256  # the device path's batch
+INT8_SUB_BATCH = 37  # a routed expert's sub-batch at B = 256
 KERNEL_ATOL = 1e-5
 GRAD_ATOL = 1e-4
 NORMALS_ATOL = 1e-4
+BF16_ROUTED_RTOL = 0.05  # bfloat16 routed vs dense normals, of max |normal|
+# (label, compute_dtype, fold_bn) of the device-sparse dtype paths
+DTYPE_PATHS = (("bf16", "bfloat16", False), ("bf16+fold", "bfloat16", True),
+               ("int8", "int8", False))
 EXTRACT_ATOL = 1e-6
 
 
@@ -227,6 +253,97 @@ def check_blocked(gen, dev, gmm_t, R=3 * DEVICE_BATCH, N=512):
     return max_err, max_diff
 
 
+def int8_layer_shapes():
+    """Every distinct (cin, cout, k, r) conv of the flagship manager and of
+    both expert widths (first width 128 on 20 channels, 42 on 60), and the
+    (cin, cout) of their FC layers."""
+    from nestinet_tpu_torch.models import backbones
+
+    convs = []
+    for spec, c in ((backbones.CONV_NET_8G, 60), (backbones.expert_backbone_8g(128), 20),
+                    (backbones.expert_backbone_8g(42), 60)):
+        r = 8
+        for entry in spec:
+            if entry[0] == "maxpool":
+                r = -(-r // entry[2])
+                continue
+            _, n, (k1, k2) = entry
+            for shape in ((c, n, 1, r), (n, n // 2, k1, r), (n, n // 2, k2, r)):
+                if shape not in convs:
+                    convs.append(shape)
+            c = n + 2 * (n // 2) + n
+    fcs = [(a, b) for widths in ((1536, 1024, 256, 128, N_EXPERTS), (1536, 512, 128, 64, 3))
+           for a, b in zip(widths, widths[1:])]
+    return convs, fcs
+
+
+def int8_case(gen, dev, B, cin, cout, k, r):
+    """Random operands of the int8 kernel in the packed layouts: int8
+    values in [-127, 127] in the first cin channels, zeros in the padding,
+    positive scales, a random bias."""
+    import torch
+
+    from nestinet_tpu_torch.ops.quant import padded_channels
+
+    cin_p = padded_channels(cin)
+    x_q = torch.zeros((B, r, r, r, cin_p), dtype=torch.int8)
+    x_q[..., :cin] = torch.randint(-127, 128, (B, r, r, r, cin), generator=gen, dtype=torch.int8)
+    w_q = torch.zeros((cout, k ** 3, cin_p), dtype=torch.int8)
+    w_q[..., :cin] = torch.randint(-127, 128, (cout, k ** 3, cin), generator=gen,
+                                   dtype=torch.int8)
+    s_w = (torch.rand(cout, generator=gen) + 0.5) * 1e-3
+    s_x = (torch.rand((), generator=gen) + 0.5) * 1e-2
+    b = torch.randn(cout, generator=gen)
+    return tuple(t.to(dev) for t in (x_q, w_q, s_w, s_x, b))
+
+
+def check_int8_kernel(gen, dev, card):
+    """Phase 5: the int8 kernel against its plain version at every conv of
+    the flagship at B = 256 and every FC layer at B = 256 and 37: outputs
+    identical.  Returns (max abs err, kernel ms and plain ms at the widest
+    conv, its int8 TOPS, per-shape times)."""
+    import torch
+
+    from nestinet_tpu_torch.core.device import cuda_median_ms
+    from nestinet_tpu_torch.ops import quant
+    from nestinet_tpu_torch.ops.kernels import int8_cuda
+
+    convs, fcs = int8_layer_shapes()
+    cases = [(INT8_BATCH, cin, cout, k, r) for cin, cout, k, r in convs]
+    cases += [(B, cin, cout, 1, 1) for B in (INT8_BATCH, INT8_SUB_BATCH) for cin, cout in fcs]
+    max_err, times = 0.0, []
+    for B, cin, cout, k, r in cases:
+        args = int8_case(gen, dev, B, cin, cout, k, r)
+        got = int8_cuda.int8_conv3d_cuda(*args, k)
+        want = quant.int8_conv3d_reference(*args, k)
+        torch.cuda.synchronize()
+        if got.dtype != torch.bfloat16 or got.shape != (B, cout, r, r, r):
+            fail(f"int8 kernel output {got.dtype} {tuple(got.shape)} at {(B, cin, cout, k, r)}")
+        n_diff = int((got != want).sum())
+        err = (got.float() - want.float()).abs().max().item()
+        max_err = max(max_err, err)
+        ms = cuda_median_ms(lambda: int8_cuda.int8_conv3d_cuda(*args, k), warmup=2, iters=10)
+        ops = 2.0 * B * r ** 3 * cout * k ** 3 * cin
+        times.append({"B": B, "cin": cin, "cout": cout, "k": k, "r": r, "ms": ms,
+                      "tops": ops / ms / 1e9})
+        print(f"int8 kernel [B={B}, cin={cin}, cout={cout}, k={k}, r={r}]: {n_diff} of "
+              f"{got.numel()} outputs differ from the plain version, max abs err {err:.3e}; "
+              f"{ms:.4f} ms, {ops / ms / 1e9:.1f} TOPS", flush=True)
+        if n_diff:
+            fail(f"int8 kernel differs from its plain version at {(B, cin, cout, k, r)}")
+    widest = max(times, key=lambda t: t["B"] * t["r"] ** 3 * t["cout"] * t["k"] ** 3 * t["cin"])
+    args = int8_case(gen, dev, widest["B"], widest["cin"], widest["cout"], widest["k"],
+                     widest["r"])
+    k = widest["k"]
+    kernel_ms = cuda_median_ms(lambda: int8_cuda.int8_conv3d_cuda(*args, k))
+    plain_ms = cuda_median_ms(lambda: quant.int8_conv3d_reference(*args, k), warmup=1, iters=3)
+    tops = widest["tops"] * widest["ms"] / kernel_ms
+    print(f"time: int8 kernel {kernel_ms:.4f} ms ({tops:.1f} int8 TOPS), plain {plain_ms:.4f} "
+          f"ms at the widest conv [B={widest['B']}, cin={widest['cin']}, "
+          f"cout={widest['cout']}, k={k}, r={widest['r']}] [{card}]", flush=True)
+    return max_err, kernel_ms, plain_ms, tops, times
+
+
 def check_extraction(dev, data, shape, radii_frac):
     """Phase 5: one batch of DEVICE_BATCH queries per radius, extracted on
     the card and on the CPU from the same inputs; returns the batch's
@@ -300,15 +417,17 @@ def check_outputs(data, out_dir, testset, n_experts):
     return summary
 
 
-def serve(name, fn, kernel, card):
-    """Drive one serving path with the launch counts at 0; check that it
-    launched the MuPS kernel once per batch."""
+def serve(name, fn, kernels, card, int8: bool = False):
+    """Drive one serving path with every launch count at 0; check that it
+    launched the MuPS kernel once per batch, and the int8 kernel if and
+    only if it serves int8."""
     import torch
 
-    kernel.reset_launches()
+    for k in kernels:
+        k.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     stats = fn()
-    launches = dict(kernel.launches)
+    launches = {n: c for k in kernels for n, c in k.launches.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     extra = (f", loader wait {stats['loader_wait_seconds']:.2f} s"
              if "loader_wait_seconds" in stats else "")
@@ -319,11 +438,60 @@ def serve(name, fn, kernel, card):
     if launches["tdmfv_n_est"] != stats["n_batches"]:
         fail(f"{name}: MuPS launches {launches['tdmfv_n_est']} != batches "
              f"{stats['n_batches']}")
+    if int8 != (launches["int8_conv3d"] > 0):
+        fail(f"{name}: {launches['int8_conv3d']} int8 kernel launches")
     if "jax" in sys.modules:
         fail("jax was imported")
     stats = {k: v for k, v in stats.items() if k not in ("shapes",)}
     stats.update(peak_memory_gb=peak_gb, launches=launches)
     return stats
+
+
+def device_time_split(fn):
+    """One call of `fn` under torch.profiler (device activity only, so
+    each row is a kernel): (device ms, share of convolution kernels, share
+    of the int8 kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = conv = int8 = 0.0
+    for evt in prof.key_averages():
+        us = evt.self_device_time_total
+        total += us
+        if "int8_conv3d" in evt.key:
+            int8 += us
+        elif any(t in evt.key for t in ("conv", "fprop")):
+            conv += us
+    if total <= 0:
+        return float("nan"), float("nan"), float("nan")
+    return total / 1e3, conv / total, int8 / total
+
+
+def one_batch(model, grid, real):
+    """Routed and dense on one grid: (normals, ids, probs) each way."""
+    import torch
+
+    from nestinet_tpu_torch.infer.predict import route_sparse
+
+    with torch.inference_mode():
+        routed = route_sparse(model, grid, real)
+        out = model.forward_grid(grid)
+        ids_d, probs_d = model.predict_experts(out)
+        dense = (model.predict_normals(out)[:real], ids_d[:real], probs_d[:real])
+        torch.cuda.synchronize()
+    return routed, dense
+
+
+def angles_deg(a, b):
+    import torch
+
+    cos = (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1)).clamp_min(1e-30)
+    return torch.rad2deg(torch.arccos(cos.clamp(-1.0, 1.0)))
 
 
 def main(argv=None) -> int:
@@ -349,25 +517,29 @@ def main(argv=None) -> int:
           f"cuda {torch.version.cuda}", flush=True)
     record = {"gpu": card, "device_name": name, "torch": torch.__version__}
 
-    # ---- 2. build ----
+    # ---- 2. build: one nvcc per library, started together ----
     from nestinet_tpu_torch.ops import mups as mups_ops
-    from nestinet_tpu_torch.ops.kernels import mups_cuda
+    from nestinet_tpu_torch.ops.kernels import int8_cuda, mups_cuda
+    from nestinet_tpu_torch.ops.kernels.build import build_all
     from nestinet_tpu_torch.scripts import mups_kernel_exp
 
-    kernel = mups_cuda.KERNEL
+    kernel, kernel8 = mups_cuda.KERNEL, int8_cuda.KERNEL
+    kernels = (kernel, kernel8)
     t0 = time.perf_counter()
-    path = kernel.build()
-    lib = kernel.lib()
+    paths = build_all(kernels)
     secs = time.perf_counter() - t0
-    print(f"build: {kernel.name} -> {os.path.relpath(path)} in {secs:.2f} s", flush=True)
-    for line in kernel.ptxas_log.splitlines():
-        if any(s in line for s in ("entry function", "registers", "spill")):
-            print(f"  ptxas: {line.strip()}")
-    for k in kernel.launches:
-        if not hasattr(lib, k + "_launch"):
-            fail(f"the library has no {k}_launch")
-        if kernel.ptxas_log and f"{k}_kernel" not in kernel.ptxas_log:
-            fail(f"ptxas compiled no {k}_kernel")
+    for lib_kernel, path in zip(kernels, paths):
+        lib = lib_kernel.lib()
+        print(f"build: {lib_kernel.name} -> {os.path.relpath(path)}", flush=True)
+        for line in lib_kernel.ptxas_log.splitlines():
+            if any(t in line for t in ("entry function", "registers", "spill")):
+                print(f"  ptxas: {line.strip()}")
+        for k in lib_kernel.launches:
+            if not hasattr(lib, k + "_launch"):
+                fail(f"the library has no {k}_launch")
+            if lib_kernel.ptxas_log and f"{k}_kernel" not in lib_kernel.ptxas_log:
+                fail(f"ptxas compiled no {k}_kernel")
+    print(f"build: both libraries in {secs:.2f} s", flush=True)
     record["build_seconds"] = secs
 
     # ---- 3. MuPS kernel against its plain version ----
@@ -392,15 +564,16 @@ def main(argv=None) -> int:
         if not r["max_abs_err"] <= KERNEL_ATOL:
             fail(f"mups_kernel_exp: block_b={r['block_b']} err {r['max_abs_err']}")
 
+    # ---- 5. int8 kernel against its plain version at every flagship shape ----
+    i8_err, i8_ms, i8_plain_ms, i8_tops, i8_times = check_int8_kernel(gen, dev, card)
+
     from nestinet_tpu.core.config import Config
     from nestinet_tpu.core.rundir import RunDir
     from nestinet_tpu.data.loader import get_data_loader
     from nestinet_tpu.data.synthetic import build_protocol_benchmark
     from nestinet_tpu_torch.core import checkpoint
     from nestinet_tpu_torch.infer.device_pipeline import extract_batch, predict_shapes_device
-    from nestinet_tpu_torch.infer.predict import (
-        load_run, pad_batch, predict_shapes, route_sparse,
-    )
+    from nestinet_tpu_torch.infer.predict import load_run, pad_batch, predict_shapes
     from nestinet_tpu_torch.models import build_model
     from nestinet_tpu_torch.models.base import init_params
 
@@ -419,7 +592,7 @@ def main(argv=None) -> int:
                      data_path=data, patch_radius=(0.01, 0.03, 0.05), num_point=512,
                      num_gaussians=8, n_experts=N_EXPERTS, seed=SEED)
 
-        # ---- 5. device extraction, card against CPU ----
+        # ---- 6. device extraction, card against CPU ----
         grids, queries, radii, bseed, caps = check_extraction(
             dev, data, shapes[0], cfg.patch_radius)
         ex_ms = cuda_median_ms(lambda: extract_batch(
@@ -440,26 +613,26 @@ def main(argv=None) -> int:
         del model
         print(f"run dir: experts_n_est, {n_params} weights", flush=True)
 
-        # ---- 6. the routed slice: device extraction + argmax-only routing ----
+        # ---- 7. the routed slice: device extraction + argmax-only routing ----
         dev_sparse = serve("device-sparse", lambda: predict_shapes_device(
             rd.path, testset="testset.txt", data_path=data, batch_size=DEVICE_BATCH,
-            moe_inference="sparse"), kernel, card)
+            moe_inference="sparse"), kernels, card)
         summary = check_outputs(data, dev_sparse["output_dir"], "testset", N_EXPERTS)
         print(f"evaluate device-sparse: testset RMS {summary['rms']:.4f} deg (random "
               f"weights), PGP10 {summary['pgp10']:.4f}", flush=True)
         dev_sparse["rms"] = summary["rms"]
 
-        # ---- 7. host extraction, routed ----
+        # ---- 8. host extraction, routed ----
         host_sparse = serve("host-sparse", lambda: predict_shapes(
             rd.path, dataset_name="pcpnet_sparse", testset="testset.txt", data_path=data,
-            batch_size=HOST_BATCH, loader_workers=8, moe_inference="sparse"), kernel, card)
+            batch_size=HOST_BATCH, loader_workers=8, moe_inference="sparse"), kernels, card)
         host_sparse["rms"] = check_outputs(
             data, host_sparse["output_dir"], "testset", N_EXPERTS)["rms"]
 
-        # ---- 8. host extraction, dense, on two shapes ----
+        # ---- 9. host extraction, dense, on two shapes ----
         host_dense = serve("host-dense", lambda: predict_shapes(
             rd.path, dataset_name="pcpnet_dense", testset="testset_two.txt", data_path=data,
-            batch_size=HOST_BATCH, loader_workers=8, moe_inference="dense"), kernel, card)
+            batch_size=HOST_BATCH, loader_workers=8, moe_inference="dense"), kernels, card)
         host_dense["rms"] = check_outputs(
             data, host_dense["output_dir"], "testset_two", N_EXPERTS)["rms"]
         print(f"evaluate: RMS host-sparse {host_sparse['rms']:.4f} deg, host-dense "
@@ -471,21 +644,17 @@ def main(argv=None) -> int:
             points, n_eff = extract_batch(grids, queries, radii, bseed,
                                           num_point=cfg.num_point, caps=caps)
             grid = model.mups_grid(points, n_eff)
-            real = DEVICE_BATCH - 16  # the last 16 rows stand for padding
-            nrm_s, ids_s, probs_s = route_sparse(model, grid, real)
-            out_d = model.forward_grid(grid)
-            ids_d, probs_d = model.predict_experts(out_d)
-            nrm_d = model.predict_normals(out_d)[:real]
-            torch.cuda.synchronize()
+        real = DEVICE_BATCH - 16  # the last 16 rows stand for padding
+        (nrm_s, ids_s, probs_s), (nrm_d, ids_d, probs_d) = one_batch(model, grid, real)
         counts = torch.bincount(ids_s, minlength=N_EXPERTS).tolist()
         route_err = (nrm_s - nrm_d).abs().max().item()
-        ids_equal = bool((ids_s == ids_d[:real]).all())
+        ids_equal = bool((ids_s == ids_d).all())
         print(f"routed vs dense, one device batch: ids equal {ids_equal}, patches per "
               f"expert {counts}, normals max abs err {route_err:.3e} (atol {NORMALS_ATOL})",
               flush=True)
         if not ids_equal:
             fail("argmax expert ids differ between routed and dense serving")
-        perr = (probs_s - probs_d[:real]).abs().max().item()
+        perr = (probs_s - probs_d).abs().max().item()
         if not perr <= 1e-6:
             fail(f"manager probabilities differ between routed and dense serving: {perr}")
         if not route_err <= NORMALS_ATOL:
@@ -520,7 +689,54 @@ def main(argv=None) -> int:
         if not nerr <= NORMALS_ATOL:
             fail(f"normals differ between the kernel and the plain MuPS: {nerr}")
 
-        # ---- 9. times ----
+        # ---- 10. serving dtypes, device-sparse at full width ----
+        dtype_runs = {}
+        for label, dtype, fold in DTYPE_PATHS:
+            dtype_runs[label] = serve(f"device-sparse {label}", lambda: predict_shapes_device(
+                rd.path, dataset_name=f"pcpnet_device_{dtype}_fold{int(fold)}",
+                testset="testset.txt", data_path=data, batch_size=DEVICE_BATCH,
+                moe_inference="sparse", compute_dtype=dtype, fold_bn=fold),
+                kernels, card, int8=dtype == "int8")
+            dtype_runs[label]["rms"] = check_outputs(
+                data, dtype_runs[label]["output_dir"], "testset", N_EXPERTS)["rms"]
+        print("evaluate: RMS " + ", ".join(f"{k} {v['rms']:.4f} deg" for k, v in
+                                          dtype_runs.items()) + " (random weights)", flush=True)
+
+        # ---- 11. one device batch in each dtype, routed and dense ----
+        with torch.inference_mode():
+            mgr_split = {"f32": device_time_split(lambda: model.manager_probs(grid))}
+            mgr_ms = {"f32": cuda_median_ms(lambda: model.manager_probs(grid), warmup=2,
+                                            iters=10)}
+        gaps = {}
+        for label, dtype, fold in DTYPE_PATHS:
+            _, _, _, m = load_run(rd.path, dev, dtype, fold)
+            with torch.inference_mode():
+                g = m.mups_grid(points, n_eff)
+            (n_r, i_r, _), (n_d, i_d, _) = one_batch(m, g, real)
+            if not bool((i_r == i_d).all()):
+                fail(f"{label}: manager ids differ between routed and dense serving")
+            diff = (n_r - n_d).abs().max().item()
+            scale = n_d.abs().max().item()
+            same = i_r == ids_s
+            gaps[label] = {"ids_agree_with_f32": same.float().mean().item(),
+                           "max_angle_deg_vs_f32": angles_deg(n_r[same], nrm_s[same]).max().item(),
+                           "routed_vs_dense_normals_max_abs_diff": diff}
+            print(f"{label}, one device batch: routed vs dense ids equal, normals max abs diff "
+                  f"{diff:.3e} (max |normal| {scale:.3f}); against float32: ids agree on "
+                  f"{gaps[label]['ids_agree_with_f32']:.3f}, max angle "
+                  f"{gaps[label]['max_angle_deg_vs_f32']:.2f} deg (random weights)", flush=True)
+            if dtype == "bfloat16" and not diff <= BF16_ROUTED_RTOL * scale:
+                fail(f"{label}: normals differ between routed and dense serving: {diff}")
+            with torch.inference_mode():
+                mgr_split[label] = device_time_split(lambda: m.manager_probs(g))
+                mgr_ms[label] = cuda_median_ms(lambda: m.manager_probs(g), warmup=2, iters=10)
+            del m
+        for label, (dev_ms, conv, int8) in mgr_split.items():
+            print(f"time: manager {label} {mgr_ms[label]:.3f} ms per batch of {DEVICE_BATCH}; "
+                  f"profiled {dev_ms:.3f} ms of device time, convolutions {100 * conv:.1f}%, "
+                  f"int8 kernel {100 * int8:.1f}% [{card}]", flush=True)
+
+        # ---- 12. times ----
         k1_ms, plain_ms = {}, {}
         for R in (3 * HOST_BATCH, 3 * DEVICE_BATCH):
             pts, n_eff_rows = flagship_rows(gen, R, 512, "random", dev)
@@ -538,12 +754,12 @@ def main(argv=None) -> int:
             flush=True)
         with torch.inference_mode():
             fwd_ms = cuda_median_ms(lambda: model(h_points, h_n_eff), warmup=2, iters=10)
-            mgr_ms = cuda_median_ms(lambda: model.manager_probs(grid), warmup=2, iters=10)
         print(f"time: extraction {ex_ms:.3f} ms per batch of {DEVICE_BATCH} (3 radii, lanes "
-              f"{list(caps)}); dense forward {fwd_ms:.3f} ms per batch of {HOST_BATCH}; "
-              f"manager {mgr_ms:.3f} ms per batch of {DEVICE_BATCH} [{card}]", flush=True)
+              f"{list(caps)}); dense forward {fwd_ms:.3f} ms per batch of {HOST_BATCH} "
+              f"[{card}]", flush=True)
         for label, st in (("device-sparse", dev_sparse), ("host-sparse", host_sparse),
-                          ("host-dense", host_dense)):
+                          ("host-dense", host_dense),
+                          *((f"device-sparse {k}", v) for k, v in dtype_runs.items())):
             print(f"time: {label} {st['patches_per_sec']:.1f} patches/s, peak "
                   f"{st['peak_memory_gb']:.2f} GB [{card}]", flush=True)
 
@@ -551,8 +767,11 @@ def main(argv=None) -> int:
         "kernel_max_abs_err": k1_err, "blocked_max_abs_err": k2_err,
         "blocked_max_diff_from_kernel": k2_diff, "kernel_ms": k1_ms, "plain_ms": plain_ms,
         "blocked_ms": blocked, "mups_kernel_exp": exp, "extract_ms_b256": ex_ms,
-        "forward_ms_b128": fwd_ms, "manager_ms_b256": mgr_ms,
+        "forward_ms_b128": fwd_ms, "manager_ms_b256": mgr_ms, "manager_split_b256": mgr_split,
         "device_sparse": dev_sparse, "host_sparse": host_sparse, "host_dense": host_dense,
+        "device_sparse_dtypes": dtype_runs, "dtype_gaps_one_batch": gaps,
+        "int8_max_abs_err": i8_err, "int8_ms_widest": i8_ms, "int8_plain_ms_widest": i8_plain_ms,
+        "int8_tops_widest": i8_tops, "int8_by_shape": i8_times,
         "routed_vs_dense_normals_max_abs_err": route_err,
         "batch_normals_max_abs_err": nerr,
     })
@@ -583,6 +802,17 @@ def main(argv=None) -> int:
             "ms": blocked[max(BLOCKS)],
             "plain_ms": plain_ms[R],
             "ms_by_block_b": blocked,
+        },
+        {
+            "name": "int8_conv3d",
+            "route": "cuda",
+            "source": "nestinet_tpu_torch/csrc/int8_conv.cu",
+            "replaces": "nestinet_tpu/ops/quant.py:85",
+            "launches": dtype_runs["int8"]["launches"]["int8_conv3d"],
+            "max_abs_err": i8_err,
+            "ms": i8_ms,
+            "plain_ms": i8_plain_ms,
+            "tops": i8_tops,
         },
     ]}))
     print(card)

@@ -11,11 +11,13 @@ Example:
         --dataset_name=pcpnet --testset=testset.txt --batch_size=128 \\
         --extraction=device --moe_inference=sparse
 
-Ported: float32 mixture-of-experts inference, routed (sparse, the default)
-or dense, with host (kd-tree) or device (grid-hash ball query) patch
-extraction, on every point or on the `.pidx` subsets (`--sparse_patches=1`).
-Other compute dtypes (the JAX CLI defaults to bfloat16), data-parallel
-serving and BatchNorm folding raise.
+Ported: mixture-of-experts inference in bfloat16 (the default, as in the
+JAX CLI), float32 or int8, optionally with BatchNorm folded into the
+kernels (`--fold_bn=1`; default: the run config), routed (sparse, the
+default) or dense, with host (kd-tree) or device (grid-hash ball query)
+patch extraction, on every point or on the `.pidx` subsets
+(`--sparse_patches=1`).  Data-parallel serving (`--data_parallel > 1`)
+raises: one GPU serves.
 """
 
 from __future__ import annotations
@@ -25,12 +27,7 @@ import json
 
 from ..infer.device_pipeline import predict_shapes_device
 from ..infer.predict import MOE_INFERENCE, predict_shapes
-
-
-def _refuse(flag: str, value, ported: str) -> None:
-    raise NotImplementedError(
-        f"--{flag}={value} is not ported to PyTorch yet; only {ported} (see ROADMAP.md)"
-    )
+from ..models.base import COMPUTE_DTYPES
 
 
 def main(argv=None):
@@ -53,19 +50,21 @@ def main(argv=None):
     p.add_argument("--moe_inference", type=str, default="sparse", choices=MOE_INFERENCE,
                    help="sparse (default): each patch through its argmax expert "
                         "only; dense: every expert on every patch (same outputs)")
-    p.add_argument("--compute_dtype", type=str, default="float32",
-                   help="only 'float32' is ported")
+    p.add_argument("--compute_dtype", type=str, default="bfloat16",
+                   choices=list(COMPUTE_DTYPES),
+                   help="CNN compute dtype for serving (parameters stay float32); "
+                        "int8 runs the convs and linears on the int8 kernel")
     p.add_argument("--data_parallel", type=int, default=0,
                    help="not ported: only one GPU serves")
     p.add_argument("--fold_bn", type=int, default=None,
-                   help="not ported: only --fold_bn=0")
+                   help="1: fold eval BatchNorm affines into the conv/linear kernels "
+                        "at load (ops/fold.py). Default: the run config")
     args = p.parse_args(argv)
-    if args.compute_dtype != "float32":
-        _refuse("compute_dtype", args.compute_dtype, "--compute_dtype=float32")
     if args.data_parallel > 1:
-        _refuse("data_parallel", args.data_parallel, "one GPU")
-    if args.fold_bn:
-        _refuse("fold_bn", args.fold_bn, "--fold_bn=0")
+        raise NotImplementedError(
+            f"--data_parallel={args.data_parallel} is not ported to PyTorch yet; "
+            "only one GPU (see ROADMAP.md)"
+        )
 
     common = dict(
         dataset_name=args.dataset_name,
@@ -74,6 +73,8 @@ def main(argv=None):
         batch_size=args.batch_size,
         sparse_patches=bool(args.sparse_patches),
         moe_inference=args.moe_inference,
+        compute_dtype=args.compute_dtype,
+        fold_bn=None if args.fold_bn is None else bool(args.fold_bn),
     )
     if args.extraction == "device":
         stats = predict_shapes_device(args.results_path, **common)

@@ -5,8 +5,10 @@ is uploaded once and hashed into one grid per radius on the device
 (`ops/ball_query.py`); per batch the host sends only the [B, 3] query
 points, and the device extracts the patches, computes the MuPS grid and
 serves it, routed (`moe_inference="sparse"`, the default, through
-`infer/predict.py::route_sparse`) or dense.  It writes the same
-`.normals`, `.experts` and `.experts_probs` files as the host path.
+`infer/predict.py::route_sparse`) or dense, in the run's compute dtype or
+the one the call names (`compute_dtype`, `fold_bn`, as in `load_run`).
+It writes the same `.normals`, `.experts` and `.experts_probs` files as
+the host path.
 
 Selection follows the JAX code draw for draw: the host generator is
 `RandomState(seed)`; per shape it draws `perm = rng.permutation(n)` and
@@ -85,6 +87,8 @@ def predict_shapes_device(
     seed: int = 3627473,
     moe_inference: str = "sparse",
     sparse_patches: bool = False,
+    compute_dtype: str | None = None,
+    fold_bn: bool | None = None,
     device: str | torch.device = "cuda",
 ) -> dict:
     """MoE inference with on-device extraction for every point of every
@@ -94,7 +98,7 @@ def predict_shapes_device(
     check_moe_inference(moe_inference)
     dev = resolve_device(device)
     set_f32_numerics()
-    rd, cfg, _, model = load_run(run_dir, dev)
+    rd, cfg, _, model = load_run(run_dir, dev, compute_dtype, fold_bn)
     indir = data_path if data_path is not None else cfg.data_path
     out_dir = output_dir if output_dir is not None else rd.results_dir(dataset_name)
 
@@ -151,6 +155,8 @@ def predict_shapes_device(
         "seconds": elapsed,
         "patches_per_sec": n_patches / elapsed if elapsed > 0 else float("inf"),
         "moe_inference": moe_inference,
+        "compute_dtype": cfg.compute_dtype,
+        "fold_bn": model.fold_bn,
         "expert_rows": expert_rows.tolist(),
         "window_caps": list(caps),
         "shapes": writer.written,

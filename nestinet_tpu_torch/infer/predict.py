@@ -1,5 +1,5 @@
-"""Streaming whole-shape inference, float32 mixture of experts, routed or
-dense.
+"""Streaming whole-shape inference, mixture of experts, routed or dense,
+in float32, bfloat16 or int8, optionally with BatchNorm folded.
 
 Counterpart of `nestinet_tpu/infer/predict.py` (`load_run:89`,
 `restore_model:154`, `predict_shapes:239`, `SparseMoeRouter:423`,
@@ -14,13 +14,19 @@ host (kd-tree) loader, zero-pad the last partial batch to the batch size
 once, runs the manager on the whole padded batch and then each real patch
 through its argmax expert only (`route_sparse`); `"dense"` runs every
 expert on every patch and keeps the argmax expert's normal.  Both give the
-same outputs.  The JAX router's FIFO slots, eviction and pipeline depth
-exist for XLA's static shapes and are not ported: here each batch is
+same ids and, up to a sub-batch's summation order, the same normals; under
+int8 a routed expert quantizes its own sub-batch, so its normals move a
+little more.  The JAX router's FIFO slots, eviction and pipeline
+depth exist for XLA's static shapes and are not ported: here each batch is
 routed by `index_select` and `index_copy` per expert.
+
+`compute_dtype` and `fold_bn` override the run's config for one call, as
+in JAX; `None` keeps the config's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -33,25 +39,32 @@ from nestinet_tpu.data.loader import get_data_loader
 from ..core import checkpoint
 from ..core.device import resolve_device, set_f32_numerics
 from ..models import build_model
+from ..ops.fold import fold_bn_
 from ..ops.gmm import GridGMM
+from ..ops.quant import quantize_
 from .writer import ShapeScatterWriter
 
 
-def load_run(run_dir: str, device: torch.device):
+def load_run(run_dir: str, device: torch.device, compute_dtype: str | None = None,
+             fold_bn: bool | None = None):
     """(run dir, cfg, gmm, model) with the torch checkpoint loaded on
-    `device`, in eval mode."""
+    `device`, in eval mode.  The weights are loaded in float32, then the
+    BatchNorms folded (with `fold_bn`) and then the kernels quantized
+    (int8), on the host, as JAX's `restore_model` does (`:207-222`)."""
     rd = RunDir.open(run_dir)
     cfg = Config.load(rd.config_path)
-    if cfg.compute_dtype != "float32":
-        # JAX serves such a run in its compute dtype; only float32 is ported
-        raise NotImplementedError(
-            f"the run's compute_dtype={cfg.compute_dtype} is not ported to PyTorch yet; "
-            "only float32 (see ROADMAP.md)"
-        )
+    if compute_dtype is not None:
+        cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+    if fold_bn is not None:
+        cfg = dataclasses.replace(cfg, fold_bn=bool(fold_bn))
     gmm = GridGMM.load(rd.gmm_path)
-    model = build_model(cfg, gmm).to(device)
-    model.load_state_dict(checkpoint.load(rd.path, device)["state_dict"])
-    model.eval()
+    model = build_model(cfg, gmm)
+    model.load_state_dict(checkpoint.load(rd.path, torch.device("cpu"))["state_dict"])
+    if model.fold_bn:
+        fold_bn_(model)
+    if model.quantize:
+        quantize_(model)
+    model.to(device).eval()
     return rd, cfg, gmm, model
 
 
@@ -124,6 +137,8 @@ def predict_shapes(
     loader_workers: int = 8,
     output_dir: str | None = None,
     moe_inference: str = "sparse",
+    compute_dtype: str | None = None,
+    fold_bn: bool | None = None,
     device: str | torch.device = "cuda",
 ) -> dict:
     """MoE inference with host patch extraction for every shape in
@@ -132,7 +147,7 @@ def predict_shapes(
     check_moe_inference(moe_inference)
     dev = resolve_device(device)
     set_f32_numerics()
-    rd, cfg, gmm, model = load_run(run_dir, dev)
+    rd, cfg, gmm, model = load_run(run_dir, dev, compute_dtype, fold_bn)
     indir = data_path if data_path is not None else cfg.data_path
     out_dir = output_dir if output_dir is not None else rd.results_dir(dataset_name)
 
@@ -190,6 +205,8 @@ def predict_shapes(
         "loader_wait_seconds": loader_wait,
         "patches_per_sec": n_patches / elapsed if elapsed > 0 else float("inf"),
         "moe_inference": moe_inference,
+        "compute_dtype": cfg.compute_dtype,
+        "fold_bn": model.fold_bn,
         "expert_rows": expert_rows.tolist(),
         "shapes": writer.written,
         "output_dir": out_dir,

@@ -4,6 +4,12 @@ Counterpart of `nestinet_tpu/models/base.py`: the GMM's w/mu/sigma live on
 the model's device as (non-persistent) buffers, `mups_grid` computes the
 statistics grid, and `FCHead` is the reference's FC head (`:120-144`):
 hidden `DenseBN` layers with BN and ReLU, a last layer without BN.
+
+Serving modes, from the config as in JAX (`:42-53`): `compute_dtype` is
+bfloat16 for "bfloat16" and "int8" and float32 otherwise (parameters stay
+float32 and are cast per op); `quantize` (int8) and `fold_bn` say what
+`infer/predict.py::load_run` does to the weights after loading them.  The
+MuPS statistics stay float32 in every mode.
 """
 
 from __future__ import annotations
@@ -16,6 +22,9 @@ from torch import nn
 from ..ops.mups import mups
 from ..ops.nn import Backbone, DenseBN
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "int8": torch.bfloat16}
+
 
 class ModelBase(nn.Module):
     def __init__(self, cfg, gmm):
@@ -23,6 +32,12 @@ class ModelBase(nn.Module):
         self.cfg = cfg
         self.gmm = gmm
         self.resolution = gmm.resolution
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {tuple(COMPUTE_DTYPES)}, "
+                             f"got {cfg.compute_dtype!r}")
+        self.compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+        self.quantize = cfg.compute_dtype == "int8"
+        self.fold_bn = bool(getattr(cfg, "fold_bn", False))
         # cfg.mups_impl is read from config.json and ignored: the port has no
         # implementation switch; ops.mups runs the CUDA kernel on a CUDA
         # tensor and the plain version on a CPU tensor.
@@ -32,12 +47,13 @@ class ModelBase(nn.Module):
         self.register_buffer("gmm_sigma", torch.from_numpy(sigma), persistent=False)
 
     def mups_grid(self, points: torch.Tensor, n_eff: torch.Tensor) -> torch.Tensor:
-        """[B, res, res, res, 20 * n_scales] statistics grid (float32)."""
+        """[B, res, res, res, 20 * n_scales] statistics grid, computed in
+        float32 and cast once to the compute dtype (JAX `experts.py:150-152`)."""
         return mups(
             points.to(torch.float32), n_eff,
             self.gmm_w, self.gmm_mu, self.gmm_sigma,
             n_scales=self.cfg.n_scales, resolution=self.resolution,
-        )
+        ).to(self.compute_dtype)
 
 
 class FCHead(nn.Module):

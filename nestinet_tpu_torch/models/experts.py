@@ -12,7 +12,13 @@ Counterpart of `nestinet_tpu/models/experts.py`:
     the argmax expert's normal is kept (first maximum on ties, as
     jnp.argmax); routed inference (`infer/predict.py::route_sparse`) runs
     `manager_probs` and then each patch's argmax expert only, through the
-    same two grid-level methods.
+    same two grid-level methods;
+  * in every compute dtype the grid is cast once (`mups_grid`), the
+    manager's softmax runs in float32 (`:92`) and the experts return
+    float32 (`:112`).  Under int8 the per-tensor activation scales depend
+    on which patches share a batch, so a routed expert's sub-batch gives
+    slightly other numbers than the dense batch (JAX's FIFO windows are
+    other batches again).
 
 The reference stacks the experts of one scale count and vmaps them; here
 they are a `ModuleList` in reference expert order, which computes the same

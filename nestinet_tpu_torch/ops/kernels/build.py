@@ -1,6 +1,8 @@
 """Build the port's CUDA kernels with nvcc at first use and load them.
 
-Each `csrc/<name>.cu` exposes a plain C interface and is compiled on its own
+Libraries: `csrc/mups_kernel.cu` (the two MuPS kernels, `mups_cuda.py`) and
+`csrc/int8_conv.cu` (the int8 implicit-GEMM conv, `int8_cuda.py`).  Each
+`csrc/<name>.cu` exposes a plain C interface and is compiled on its own
 into a shared library for sm_90a (no PyTorch headers, so a build takes
 seconds):
 
@@ -21,6 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -42,6 +45,19 @@ def _nvcc() -> str:
     if os.path.isfile(path):
         return path
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def require_tensor(t, name: str, dtype, shape: tuple, device) -> None:
+    """Raise unless `t` is a contiguous tensor of `dtype` and `shape` on
+    `device`: what a kernel wrapper checks before it launches."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 class CudaKernel:
@@ -102,3 +118,10 @@ class CudaKernel:
         if code != 0:
             msg = self.lib().cuda_error_string(code).decode()
             raise RuntimeError(f"{self.name}: CUDA launch failed ({code}): {msg}")
+
+
+def build_all(kernels) -> list[str]:
+    """Build several libraries at once, one nvcc per source, all started
+    together; returns their paths and raises if any build fails."""
+    with ThreadPoolExecutor(max_workers=max(1, len(kernels))) as pool:
+        return list(pool.map(CudaKernel.build, kernels))

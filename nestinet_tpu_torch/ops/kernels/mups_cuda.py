@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from .build import CudaKernel
+from .build import CudaKernel, require_tensor
 
 N_CHANNELS = 20
 
@@ -32,17 +32,6 @@ def _bind(lib, name: str, n_ints: int):
     return fn
 
 
-def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _checked(points, w, mu, sigma, n_eff):
     """Validate the kernels' inputs; returns (R, N, K)."""
     if points.device.type != "cuda":
@@ -52,11 +41,11 @@ def _checked(points, w, mu, sigma, n_eff):
     R, N, _ = points.shape
     K = mu.shape[0]
     dev = points.device
-    _require(points, "points", torch.float32, (R, N, 3), dev)
-    _require(w, "w", torch.float32, (K,), dev)
-    _require(mu, "mu", torch.float32, (K, 3), dev)
-    _require(sigma, "sigma", torch.float32, (K, 3), dev)
-    _require(n_eff, "n_eff", torch.int32, (R,), dev)
+    require_tensor(points, "points", torch.float32, (R, N, 3), dev)
+    require_tensor(w, "w", torch.float32, (K,), dev)
+    require_tensor(mu, "mu", torch.float32, (K, 3), dev)
+    require_tensor(sigma, "sigma", torch.float32, (K, 3), dev)
+    require_tensor(n_eff, "n_eff", torch.int32, (R,), dev)
     if not 0 < K <= 1024:
         raise ValueError(f"the MuPS kernel takes 1..1024 Gaussians, got {K}")
     if N <= 0:

@@ -6,6 +6,19 @@ BatchNorm state keeps its names (`ema_mean`, `ema_var`, `bias`) as buffers,
 so `convert.py` maps a haiku tree onto a state dict by path.  Conv kernels
 are stored OIDHW and linear weights [out, in].
 
+Compute dtype: parameters stay float32 master copies and every op casts
+them to its input's dtype (JAX `ops/nn.py:89-115,150-157,182`), so one
+checkpoint serves in float32 or bfloat16.  The bias is added after the
+conv/matmul has been rounded, as a separate op in the input's dtype.
+
+int8 (`ops/quant.py`): a conv or linear whose weights were quantized at
+load (`quantize_()`) runs the int8 MAC kernel.  Its input's activation
+scale comes from an `ActQ` bound when the producer forwarded one: each
+quantized ConvBN3D emits max|out| of its BN(+ReLU) output, pools keep their
+input's bound, the Inception concat takes the max over its branches and the
+backbone flatten hands the bound to FC1 (JAX `ops/nn.py:39-64`).  Without a
+bound (the first conv of a CNN, FC2 onwards) the op reduces its own input.
+
 Padding follows TensorFlow's SAME rule: the total pad is
 max((ceil(n/s) - 1) * s + k - n, 0) per axis, with the odd cell at the end
 (kernels 2 and 4 of the flagship backbones pad asymmetrically).
@@ -13,11 +26,30 @@ max((ceil(n/s) - 1) * s + k - n, 0) per axis, with the odd cell at the end
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import quant
+
 BN_EPS = 1e-3
+
+
+class ActQ(NamedTuple):
+    """An activation with a scalar float32 upper bound on |x| (int8
+    serving only; JAX `ops/nn.py::ActQ`)."""
+
+    x: torch.Tensor
+    amax: torch.Tensor
+
+
+def unwrap(x):
+    """(tensor, amax or None) from a plain tensor or an ActQ."""
+    if isinstance(x, ActQ):
+        return x.x, x.amax
+    return x, None
 
 
 def _same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -37,9 +69,10 @@ def _pad_same(x: torch.Tensor, kernel: int, stride: int, value: float = 0.0):
 
 
 class BatchNormEMA(nn.Module):
-    """Eval-mode BatchNorm over a zero-debiased EMA of batch moments:
-    mean = ema_mean / max(1 - bias, 1e-12), likewise the variance, and
-    (x - mean) * gamma * rsqrt(var + 1e-3) + beta."""
+    """Eval-mode BatchNorm over a zero-debiased EMA of batch moments, with
+    JAX's casts: the debiased mean and variance in float32, then cast to
+    x.dtype; inv = gamma * rsqrt(var + 1e-3) and (x - mean) * inv + beta in
+    x.dtype."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -51,56 +84,93 @@ class BatchNormEMA(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         denom = torch.clamp(1.0 - self.bias, min=1e-12)
-        mean = self.ema_mean / denom
-        var = self.ema_var / denom
-        inv = self.gamma * torch.rsqrt(var + BN_EPS)
+        mean = (self.ema_mean / denom).to(x.dtype)
+        var = (self.ema_var / denom).to(x.dtype)
+        # eps is rounded to x.dtype first, as JAX's weakly typed scalar is;
+        # rsqrt runs in float32 and rounds once (torch's bfloat16 rsqrt
+        # rounds twice on small tensors)
+        var = var + torch.tensor(BN_EPS, dtype=x.dtype)
+        inv = self.gamma.to(x.dtype) * torch.rsqrt(var.float()).to(x.dtype)
         shape = (1, -1) + (1,) * (x.dim() - 2)  # channels on axis 1
-        return (x - mean.view(shape)) * inv.view(shape) + self.beta.view(shape)
+        return (x - mean.view(shape)) * inv.view(shape) + self.beta.to(x.dtype).view(shape)
 
 
 class _Conv3D(nn.Module):
-    """Stride-1 3D conv with bias, SAME padding; `w` is OIDHW."""
+    """Stride-1 3D conv with bias, SAME padding; `w` is OIDHW.  After
+    `quantize_()` the float kernel is gone and `w_q` [cout, k^3, cin_p]
+    int8 with `w_scale` [cout] take its place."""
 
     def __init__(self, cin: int, cout: int, kernel: int):
         super().__init__()
         self.kernel = kernel
         self.w = nn.Parameter(torch.empty(cout, cin, kernel, kernel, kernel))
         self.b = nn.Parameter(torch.zeros(cout))
+        self.register_buffer("w_q", None)
+        self.register_buffer("w_scale", None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def quantized(self) -> bool:
+        return self.w_q is not None
+
+    @torch.no_grad()
+    def quantize_(self) -> None:
+        self.w_q, self.w_scale = quant.quantize_weight(self.w)
+        self.w = None
+
+    def forward(self, x: torch.Tensor, x_amax=None) -> torch.Tensor:
+        if self.quantized:
+            return quant.conv3d_int8(x, self.w_q, self.w_scale, self.b, self.kernel, x_amax)
+        w = self.w.to(x.dtype)
         if self.kernel % 2 == 1:
             # symmetric SAME pad: let the conv do it
-            return F.conv3d(x, self.w, self.b, padding=self.kernel // 2)
-        return F.conv3d(_pad_same(x, self.kernel, 1), self.w, self.b)
+            out = F.conv3d(x, w, padding=self.kernel // 2)
+        else:
+            out = F.conv3d(_pad_same(x, self.kernel, 1), w)
+        return out + self.b.to(x.dtype).view(1, -1, 1, 1, 1)
 
 
 class _Linear(nn.Module):
-    """Linear with bias; `w` is [out, in]."""
+    """Linear with bias; `w` is [out, in].  `quantize_()` as in _Conv3D,
+    with `w_q` [cout, 1, cin_p]."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.w = nn.Parameter(torch.empty(cout, cin))
         self.b = nn.Parameter(torch.zeros(cout))
+        self.register_buffer("w_q", None)
+        self.register_buffer("w_scale", None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.w, self.b)
+    quantized = _Conv3D.quantized
+    quantize_ = _Conv3D.quantize_
+
+    def forward(self, x: torch.Tensor, x_amax=None) -> torch.Tensor:
+        if self.quantized:
+            return quant.linear_int8(x, self.w_q, self.w_scale, self.b, x_amax)
+        return F.linear(x, self.w.to(x.dtype)) + self.b.to(x.dtype)
 
 
 class ConvBN3D(nn.Module):
-    """Stride-1 3D conv + bias + EMA BatchNorm + ReLU, NCDHW, SAME padding
-    (the only form the backbones use)."""
+    """Stride-1 3D conv + bias + EMA BatchNorm (+ ReLU), NCDHW, SAME padding
+    (the only form the backbones use).  Quantized, it returns an ActQ whose
+    bound is max|out| of what it returns."""
 
     def __init__(self, cin: int, channels: int, kernel: int):
         super().__init__()
         self.conv = _Conv3D(cin, channels, kernel)
         self.bn = BatchNormEMA(channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(self.conv(x)))
+    def forward(self, x, relu: bool = True):
+        x, x_amax = unwrap(x)
+        y = self.bn(self.conv(x, x_amax))
+        if relu:
+            y = F.relu(y)
+        if self.conv.quantized:
+            return ActQ(y, y.abs().amax().to(torch.float32))
+        return y
 
 
 class DenseBN(nn.Module):
-    """Linear + bias (+ EMA BatchNorm) (+ ReLU)."""
+    """Linear + bias (+ EMA BatchNorm) (+ ReLU); returns a plain tensor."""
 
     def __init__(self, cin: int, units: int, *, bn: bool = False, relu: bool = True):
         super().__init__()
@@ -108,52 +178,66 @@ class DenseBN(nn.Module):
         self.bn = BatchNormEMA(units) if bn else None
         self.relu = relu
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.linear(x)
+    def forward(self, x) -> torch.Tensor:
+        x, x_amax = unwrap(x)
+        x = self.linear(x, x_amax)
         if self.bn is not None:
             x = self.bn(x)
         return F.relu(x) if self.relu else x
 
 
-def max_pool3d(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
-    """3D max pool, SAME padding with a -inf pad, NCDHW."""
-    x = _pad_same(x, kernel, stride, value=float("-inf"))
-    return F.max_pool3d(x, kernel, stride)
+def max_pool3d(x, kernel: int, stride: int):
+    """3D max pool, SAME padding with a -inf pad, NCDHW; an ActQ keeps its
+    bound."""
+    x, x_amax = unwrap(x)
+    out = F.max_pool3d(_pad_same(x, kernel, stride, value=float("-inf")), kernel, stride)
+    return out if x_amax is None else ActQ(out, x_amax)
 
 
-def avg_pool3d(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+def avg_pool3d(x, kernel: int, stride: int):
     """3D average pool, SAME padding; the divisor counts only the valid
-    (unpadded) cells of each window, as TensorFlow does.  torch's
-    `count_include_pad=False` covers symmetric pads only, so the pad and the
-    divisor are written out."""
-    sums = F.avg_pool3d(_pad_same(x, kernel, stride), kernel, stride,
-                        divisor_override=1)
-    counts = None
-    for axis, size in enumerate(x.shape[2:]):
+    (unpadded) cells of each window, as TensorFlow does.  Separable, as JAX
+    serves it (`ops/nn.py:394-414`): one window sum per spatial axis, each
+    summed one cell at a time in x.dtype, divided by the outer product of
+    the per-axis valid counts.  An ActQ keeps its bound."""
+    x, x_amax = unwrap(x)
+    sums = x
+    counts = torch.ones((), dtype=x.dtype, device=x.device)
+    for axis in (2, 3, 4):
+        size = x.shape[axis]
+        lo, hi = _same_pads(size, kernel, stride)
+        pads = [0, 0] * 3
+        pads[2 * (4 - axis)] = lo  # F.pad lists the last axis first
+        pads[2 * (4 - axis) + 1] = hi
+        windows = F.pad(sums, pads).unfold(axis, kernel, stride)
+        sums = windows[..., 0]
+        for j in range(1, kernel):
+            sums = sums + windows[..., j]
         ones = torch.ones((size,), dtype=x.dtype, device=x.device)
-        c = _window_counts(ones, kernel, stride)
+        c = F.pad(ones, (lo, hi)).unfold(0, kernel, stride).sum(-1)
         shape = [1, 1, 1, 1, 1]
-        shape[2 + axis] = c.shape[-1]
-        c = c.reshape(shape)
-        counts = c if counts is None else counts * c
-    return sums / counts
-
-
-def _window_counts(ones: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
-    """Number of valid cells in each SAME window along one axis."""
-    padded = F.pad(ones, _same_pads(ones.shape[0], kernel, stride))
-    return padded.unfold(0, kernel, stride).sum(-1)
+        shape[axis] = c.shape[0]
+        counts = counts * c.reshape(shape)
+    out = sums / counts
+    return out if x_amax is None else ActQ(out, x_amax)
 
 
 class Inception3D(nn.Module):
     """The 3D inception block: a 1x1x1 conv of n, two k1^3 / k2^3 convs of
-    n/2 on its output, and avgpool(k1, stride 1) -> 1x1x1 conv of n; the
-    four are concatenated on channels (3n outputs).  The pool branch runs
-    in the reference order relu(BN(conv(avgpool(x)))) for every width."""
+    n/2 on its output, and a pool branch of a stride-1 k1^3 average pool
+    and a 1x1x1 conv of n; the four are concatenated on channels (3n
+    outputs).
+
+    The pool branch follows JAX's inference order (`ops/nn.py:430-459`):
+    relu(BN(conv(avgpool(x)))) when cin <= n; when cin > n the conv and BN
+    run first on x, without ReLU, then the pool, then the ReLU (the same
+    function up to float reassociation, on n instead of cin channels).
+    Under int8 that branch carries the bound of its pre-ReLU BN output."""
 
     def __init__(self, cin: int, n_filters: int, kernel_sizes=(3, 5)):
         super().__init__()
         n = int(n_filters)
+        self.cin, self.n = cin, n
         self.k1, self.k2 = kernel_sizes
         self.conv1 = ConvBN3D(cin, n, 1)
         self.conv2 = ConvBN3D(n, n // 2, self.k1)
@@ -161,12 +245,21 @@ class Inception3D(nn.Module):
         self.conv4 = ConvBN3D(cin, n, 1)
         self.out_channels = n + 2 * (n // 2) + n
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         one = self.conv1(x)
         b1 = self.conv2(one)
         b2 = self.conv3(one)
-        ap = self.conv4(avg_pool3d(x, self.k1, 1))
-        return torch.cat([one, b1, b2, ap], dim=1)
+        if self.cin <= self.n:
+            ap = self.conv4(avg_pool3d(x, self.k1, 1))
+        else:
+            ap, ap_amax = unwrap(self.conv4(x, relu=False))
+            ap = F.relu(avg_pool3d(ap, self.k1, 1))
+            ap = ap if ap_amax is None else ActQ(ap, ap_amax)
+        parts = [one, b1, b2, ap]
+        if all(isinstance(p, ActQ) for p in parts):
+            return ActQ(torch.cat([p.x for p in parts], dim=1),
+                        torch.stack([p.amax for p in parts]).amax())
+        return torch.cat([unwrap(p)[0] for p in parts], dim=1)
 
 
 class Backbone(nn.Module):
@@ -193,10 +286,12 @@ class Backbone(nn.Module):
                 raise ValueError(f"unknown backbone entry: {entry}")
         self.out_features = c * r ** 3
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         for i, entry in enumerate(self.spec):
             if entry[0] == "incep":
                 x = getattr(self, f"incep{i}")(x)
             else:
                 x = max_pool3d(x, entry[1], entry[2])
-        return x.permute(0, 2, 3, 4, 1).reshape(x.shape[0], -1)
+        x, x_amax = unwrap(x)
+        x = x.permute(0, 2, 3, 4, 1).reshape(x.shape[0], -1)
+        return x if x_amax is None else ActQ(x, x_amax)

@@ -3,7 +3,7 @@ imports: the GPU machine it serves on has none of them.
 
 A subprocess blocks those packages in `sys.modules` before anything else,
 imports every module of the port, and runs a tiny CPU forward, dense and
-routed on device-extracted patches.
+routed on device-extracted patches, then the same model folded and in int8.
 """
 
 import os
@@ -27,6 +27,9 @@ SCRIPT = textwrap.dedent(
         "nestinet_tpu_torch.ops.nn",
         "nestinet_tpu_torch.ops.kernels.build",
         "nestinet_tpu_torch.ops.kernels.mups_cuda",
+        "nestinet_tpu_torch.ops.kernels.int8_cuda",
+        "nestinet_tpu_torch.ops.fold",
+        "nestinet_tpu_torch.ops.quant",
         "nestinet_tpu_torch.models",
         "nestinet_tpu_torch.models.backbones",
         "nestinet_tpu_torch.models.base",
@@ -75,6 +78,21 @@ SCRIPT = textwrap.dedent(
         normals, ids, probs = route_sparse(model, model.mups_grid(pts, ne), 3)
     assert normals.shape == (3, 3) and torch.isfinite(normals).all()
     assert ids.shape == (3,) and probs.shape == (3, 7)
+
+    import dataclasses
+    from nestinet_tpu_torch.ops.fold import fold_bn_
+    from nestinet_tpu_torch.ops.quant import quantize_
+
+    q = build_model(dataclasses.replace(cfg, compute_dtype="int8", fold_bn=True),
+                    get_3d_grid_gmm([3, 3, 3], variance=1.0 / 9))
+    q.load_state_dict(model.state_dict())
+    quantize_(fold_bn_(q)).eval()
+    with torch.inference_mode():
+        grid = q.mups_grid(pts, ne)
+        assert grid.dtype == torch.bfloat16
+        normals, ids, probs = route_sparse(q, grid, 3)
+    assert normals.dtype == probs.dtype == torch.float32
+    assert torch.isfinite(normals).all() and torch.isfinite(probs).all()
     assert all(sys.modules.get(n) is None for n in ("jax", "haiku", "flax"))
     print("NOJAX_OK")
     """

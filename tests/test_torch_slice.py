@@ -160,9 +160,7 @@ def test_slice_rms_matches_jax(served):
     assert abs(got["rms"] - want["rms"]) < 0.01
 
 
-@pytest.mark.parametrize("flag", [
-    "--compute_dtype=int8", "--data_parallel=2", "--fold_bn=1",
-])
+@pytest.mark.parametrize("flag", ["--data_parallel=2"])
 def test_cli_refuses_unported_modes(flag):
     from nestinet_tpu_torch.cli import test as cli_test
 
@@ -170,10 +168,16 @@ def test_cli_refuses_unported_modes(flag):
         cli_test.main(["--results_path=unused", flag])
 
 
-@pytest.mark.parametrize("extraction", ["device", "host"])
-def test_cli_accepts_routed_modes(monkeypatch, capsys, extraction):
-    """Routed serving is the CLI's default, with either extraction; each
-    goes to its serving function with the flags it was given."""
+def test_cli_refuses_an_unknown_dtype(capsys):
+    from nestinet_tpu_torch.cli import test as cli_test
+
+    with pytest.raises(SystemExit):
+        cli_test.main(["--results_path=unused", "--compute_dtype=float16"])
+    assert "invalid choice" in capsys.readouterr().err
+
+
+def _fake_serving(monkeypatch):
+    """Replace both serving functions of the CLI by recorders."""
     from nestinet_tpu_torch.cli import test as cli_test
 
     calls = []
@@ -186,6 +190,33 @@ def test_cli_accepts_routed_modes(monkeypatch, capsys, extraction):
 
     monkeypatch.setattr(cli_test, "predict_shapes_device", fake("device"))
     monkeypatch.setattr(cli_test, "predict_shapes", fake("host"))
+    return cli_test, calls
+
+
+@pytest.mark.parametrize("flags,dtype,fold_bn", [
+    ([], "bfloat16", None),  # the JAX CLI's defaults
+    (["--compute_dtype=float32"], "float32", None),
+    (["--compute_dtype=bfloat16", "--fold_bn=1"], "bfloat16", True),
+    (["--compute_dtype=int8"], "int8", None),
+    (["--compute_dtype=int8", "--fold_bn=0"], "int8", False),
+])
+@pytest.mark.parametrize("extraction", ["device", "host"])
+def test_cli_serving_dtypes(monkeypatch, extraction, flags, dtype, fold_bn):
+    """`--compute_dtype` defaults to bfloat16 as in JAX
+    (`nestinet_tpu/cli/test.py:52`); `--fold_bn` defaults to the run
+    config's (None); both reach the serving function."""
+    cli_test, calls = _fake_serving(monkeypatch)
+    cli_test.main(["--results_path=run", f"--extraction={extraction}", *flags])
+    ((name, _, kw),) = calls
+    assert name == extraction
+    assert kw["compute_dtype"] == dtype and kw["fold_bn"] is fold_bn
+
+
+@pytest.mark.parametrize("extraction", ["device", "host"])
+def test_cli_accepts_routed_modes(monkeypatch, capsys, extraction):
+    """Routed serving is the CLI's default, with either extraction; each
+    goes to its serving function with the flags it was given."""
+    cli_test, calls = _fake_serving(monkeypatch)
     cli_test.main(["--results_path=run", f"--extraction={extraction}",
                    "--moe_inference=sparse", "--sparse_patches=1", "--batch_size=256"])
     ((name, run_dir, kw),) = calls

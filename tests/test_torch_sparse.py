@@ -169,20 +169,53 @@ def test_unknown_moe_inference_raises(run):
         predict_shapes(run_path, data_path=data, device="cpu", moe_inference="topk")
 
 
-def test_run_in_another_compute_dtype_is_refused(run, tmp_path):
-    """JAX serves a run whose config says bfloat16 in bfloat16; the port
-    refuses it rather than serve it in float32 unasked."""
+def _copy_with_dtype(run_path, tmp_path, dtype):
     import shutil
 
     from nestinet_tpu.core.config import Config
     from nestinet_tpu.core.rundir import RunDir
 
-    _, data, run_path = run
-    copy = str(tmp_path / "bf16_run")
+    copy = str(tmp_path / f"{dtype}_run")
     shutil.copytree(run_path, copy)
     rd = RunDir.open(copy)
     cfg = Config.load(rd.config_path)
-    cfg.compute_dtype = "bfloat16"
+    cfg.compute_dtype = dtype
     cfg.save(rd.config_path)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    return copy
+
+
+def test_run_in_another_compute_dtype_is_refused(run, tmp_path):
+    """A run configured for a dtype that neither package serves raises."""
+    _, data, run_path = run
+    copy = _copy_with_dtype(run_path, tmp_path, "float16")
+    with pytest.raises(ValueError, match="compute_dtype"):
         predict_shapes(copy, data_path=data, device="cpu")
+
+
+def test_run_in_bfloat16_is_served_in_bfloat16(run, served, tmp_path):
+    """JAX serves a run whose config says bfloat16 in bfloat16
+    (`nestinet_tpu/infer/predict.py:133`), and so does the port: the
+    same outputs as the float32 run served with compute_dtype="bfloat16";
+    `compute_dtype="float32"` overrides the config back to float32."""
+    root, data, run_path = run
+    copy = _copy_with_dtype(run_path, tmp_path, "bfloat16")
+    _, cfg, _, model = load_run(copy, torch.device("cpu"))
+    assert cfg.compute_dtype == "bfloat16" and model.compute_dtype == torch.bfloat16
+    common = dict(testset="testset.txt", data_path=data, batch_size=BATCH, loader_workers=2,
+                  device="cpu", sparse_patches=True)
+    by_config = predict_shapes(copy, output_dir=str(tmp_path / "cfg"), **common)
+    by_call = predict_shapes(run_path, output_dir=str(tmp_path / "call"),
+                             compute_dtype="bfloat16", **common)
+    back = predict_shapes(copy, output_dir=str(tmp_path / "f32"), compute_dtype="float32",
+                          **common)
+    assert by_config["compute_dtype"] == by_call["compute_dtype"] == "bfloat16"
+    assert back["compute_dtype"] == "float32"
+    f32 = served["sparse_pidx"]
+    moved = 0.0
+    for shape in by_config["shapes"]:
+        for ext in (".normals", ".experts", ".experts_probs"):
+            np.testing.assert_array_equal(_load(by_config, shape, ext), _load(by_call, shape, ext))
+            np.testing.assert_array_equal(_load(back, shape, ext), _load(f32, shape, ext))
+        moved = max(moved, np.abs(_load(by_config, shape, ".experts_probs")
+                                  - _load(f32, shape, ".experts_probs")).max())
+    assert moved > 1e-4  # bfloat16 really served
