@@ -19,11 +19,16 @@ and prints no result):
      the plain version at atol 1e-5 on the same three row sets, and against
      the first kernel (identical); 766 rows in blocks of 4 raise; then its
      entry point, `nestinet_tpu_torch.scripts.mups_kernel_exp.main`;
-  5. int8 conv kernel against its plain version (an exact integer conv in
-     float64 and the same float32 epilogue) at every distinct conv of the
-     flagship manager and both expert widths at B = 256, and every FC
-     layer at B = 256 and at a routed sub-batch of 37: outputs identical;
-     its time, and the plain version's, at the widest conv;
+  5. the fused int8 conv kernel (bf16 in, quantized on load, wgmma; ReLU
+     and max|out| in its epilogue) against its plain version (the quantize
+     pass, an exact integer conv in float64 and the same float32 epilogue)
+     at every distinct conv of the flagship manager and both expert widths
+     and every FC layer, each at B = 256 and at a routed sub-batch of 37,
+     ReLU off (with a forwarded bound) and on (the scale from max|x|):
+     outputs and max|out| identical; each shape timed (CUDA events), with
+     `torch._int_mm` on the same int8 operands as the yardstick at the
+     1x1x1 convs and FCs, and its bound; the plain version's time at the
+     widest conv;
   6. device extraction: one batch of 256 queries per radius of the
      flagship config on one synthetic shape, extracted on the card and on
      the CPU from the same inputs: grids, selected rows, hit masks and
@@ -43,21 +48,24 @@ and prints no result):
      atol 1e-4) and one host batch against the same model on the plain
      MuPS;
  10. the serving dtypes: device-sparse in bfloat16, in bfloat16 with
-     BatchNorm folded and in int8, each on the 30,000 patches, checked as
-     in phase 7; the int8 path must launch the int8 kernel and the others
-     must not;
+     BatchNorm folded, in int8 and in int8 with BatchNorm folded (the mode
+     JAX serves after `restore_model` folds, then quantizes), each on the
+     30,000 patches, checked as in phase 7; the int8 paths must launch the
+     int8 kernel and the others must not;
  11. one device batch in each dtype, routed and dense: manager ids
      identical (under int8 too: the manager sees the same batch), bfloat16
      normals within 5% of the largest |normal| (cuDNN may sum a sub-batch
      in another order); each dtype's agreement with float32 printed, not
      held (random weights); the manager's time and its device-time split
-     (convolutions, int8 kernel) in each dtype;
+     (convolutions, int8 kernel) in each dtype; under int8 the device
+     launches of one routed batch and of one conv (`torch.profiler`);
  12. times: both MuPS kernels and their plain version (CUDA events, median
      after warm-up), extraction per batch, the forward, and each serving
      path's patches/s and peak memory.
 
-The script ran in 258 s on an H100 (a fifth of its 1,200 s limit), so
-the only cut of depth is host-dense's, which serves two of the six shapes.
+The script ran in about 300 s on an H100 (a quarter of its 1,200 s
+limit), so the only cut of depth is host-dense's, which serves two of the
+six shapes.
 
 Each serving path and the kernels' entry point run with the launch counts
 set to 0 just before and read just after; a kernel of the path that was
@@ -70,6 +78,7 @@ writes every number measured to a JSON file.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -91,8 +100,13 @@ NORMALS_ATOL = 1e-4
 BF16_ROUTED_RTOL = 0.05  # bfloat16 routed vs dense normals, of max |normal|
 # (label, compute_dtype, fold_bn) of the device-sparse dtype paths
 DTYPE_PATHS = (("bf16", "bfloat16", False), ("bf16+fold", "bfloat16", True),
-               ("int8", "int8", False))
+               ("int8", "int8", False), ("int8+fold", "int8", True))
 EXTRACT_ATOL = 1e-6
+# Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+FP32_FLOPS_PER_S = 67e12
+FP64_FLOPS_PER_S = 34e12  # FP64 outside the tensor cores
 
 
 def fail(msg: str):
@@ -277,31 +291,75 @@ def int8_layer_shapes():
     return convs, fcs
 
 
+def bound(ops: float, nbytes: float, ops_per_s: float):
+    """(least ms, "operations" or "bytes"): the larger of the work over the
+    card's peak rate for its type and the bytes over its memory rate."""
+    t_ops, t_bytes = ops / ops_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def mups_bound(n_eff, N: int, K: int):
+    """The MuPS kernel's bound for these rows: per (real point, Gaussian)
+    pair 2 exponentials and 58 float32 operations (two passes of the
+    scaled offsets and the weighted pdf, then the 20 statistics) and 8
+    float64 adds (the denominator, then pi and the six sums); rows past
+    n_eff are never evaluated.  Bytes: the points, n_eff, the Gaussians'
+    8 K floats, the [20, K] output rows."""
+    rows = n_eff.numel()
+    pairs = float((n_eff.clamp(max=N - 1) + 1).sum().item()) * K
+    ms = max(pairs * 60 / FP32_FLOPS_PER_S, pairs * 8 / FP64_FLOPS_PER_S) * 1e3
+    nbytes = rows * (3 * N * 4 + 4) + 8 * K * 4 + rows * 20 * K * 4
+    return (ms, "operations") if ms >= nbytes / HBM_BYTES_PER_S * 1e3 else \
+        (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
+
+
 def int8_case(gen, dev, B, cin, cout, k, r):
-    """Random operands of the int8 kernel in the packed layouts: int8
-    values in [-127, 127] in the first cin channels, zeros in the padding,
-    positive scales, a random bias."""
+    """Operands of the fused int8 kernel: a bfloat16 activation N(0, 2^2)
+    [B, cin, r, r, r], int8 weights in [-127, 127] packed [cout, k^3,
+    cin_p] with zeros in the padding, positive scales, a random bias, and a
+    forwarded bound 1.25 max|x| (as an average pool keeps one above max|x|)."""
     import torch
 
     from nestinet_tpu_torch.ops.quant import padded_channels
 
     cin_p = padded_channels(cin)
-    x_q = torch.zeros((B, r, r, r, cin_p), dtype=torch.int8)
-    x_q[..., :cin] = torch.randint(-127, 128, (B, r, r, r, cin), generator=gen, dtype=torch.int8)
+    x = (torch.randn((B, cin, r, r, r), generator=gen) * 2).to(torch.bfloat16)
     w_q = torch.zeros((cout, k ** 3, cin_p), dtype=torch.int8)
     w_q[..., :cin] = torch.randint(-127, 128, (cout, k ** 3, cin), generator=gen,
                                    dtype=torch.int8)
     s_w = (torch.rand(cout, generator=gen) + 0.5) * 1e-3
-    s_x = (torch.rand((), generator=gen) + 0.5) * 1e-2
     b = torch.randn(cout, generator=gen)
-    return tuple(t.to(dev) for t in (x_q, w_q, s_w, s_x, b))
+    x_amax = x.abs().amax().float() * 1.25
+    return tuple(t.to(dev) for t in (x, w_q, s_w, b, x_amax))
+
+
+def int_mm_ms(args, B, r):
+    """`torch._int_mm` on the int8 operands of a 1x1x1 conv or an FC (the
+    quantized activation channels-last [M, cin_p] times w_q^T): the int32
+    product alone, as one library call; None where it refuses the shape."""
+    import torch
+
+    from nestinet_tpu_torch.core.device import cuda_median_ms
+    from nestinet_tpu_torch.ops import quant
+
+    x, w_q, _, _, x_amax = args
+    a = quant.quantize_activation(x, quant.activation_scale(x, x_amax))
+    a = a.reshape(B * r ** 3, -1)
+    w = w_q[:, 0, :].t()
+    try:
+        torch._int_mm(a, w)
+        torch.cuda.synchronize()
+    except RuntimeError:
+        return None
+    return cuda_median_ms(lambda: torch._int_mm(a, w), warmup=2, iters=10)
 
 
 def check_int8_kernel(gen, dev, card):
-    """Phase 5: the int8 kernel against its plain version at every conv of
-    the flagship at B = 256 and every FC layer at B = 256 and 37: outputs
-    identical.  Returns (max abs err, kernel ms and plain ms at the widest
-    conv, its int8 TOPS, per-shape times)."""
+    """Phase 5: the fused int8 kernel against its plain version at every
+    conv and FC shape of the flagship, at B = 256 and 37, ReLU off and on,
+    each with the forwarded bound and with the scale from max|x|: outputs
+    and max|out| identical.  Returns (max abs err, per-shape rows, the widest conv's
+    row with the plain version's time)."""
     import torch
 
     from nestinet_tpu_torch.core.device import cuda_median_ms
@@ -309,39 +367,77 @@ def check_int8_kernel(gen, dev, card):
     from nestinet_tpu_torch.ops.kernels import int8_cuda
 
     convs, fcs = int8_layer_shapes()
-    cases = [(INT8_BATCH, cin, cout, k, r) for cin, cout, k, r in convs]
+    cases = [(B, cin, cout, k, r) for B in (INT8_BATCH, INT8_SUB_BATCH)
+             for cin, cout, k, r in convs]
     cases += [(B, cin, cout, 1, 1) for B in (INT8_BATCH, INT8_SUB_BATCH) for cin, cout in fcs]
-    max_err, times = 0.0, []
+    max_err, rows = 0.0, []
     for B, cin, cout, k, r in cases:
         args = int8_case(gen, dev, B, cin, cout, k, r)
-        got = int8_cuda.int8_conv3d_cuda(*args, k)
-        want = quant.int8_conv3d_reference(*args, k)
-        torch.cuda.synchronize()
-        if got.dtype != torch.bfloat16 or got.shape != (B, cout, r, r, r):
-            fail(f"int8 kernel output {got.dtype} {tuple(got.shape)} at {(B, cin, cout, k, r)}")
-        n_diff = int((got != want).sum())
-        err = (got.float() - want.float()).abs().max().item()
-        max_err = max(max_err, err)
-        ms = cuda_median_ms(lambda: int8_cuda.int8_conv3d_cuda(*args, k), warmup=2, iters=10)
+        x, w_q, s_w, b, x_amax = args
+        for relu, bound_in in itertools.product((False, True), (x_amax, None)):
+            got, got_amax = quant.int8_conv3d_fused(x, w_q, s_w, b, k, bound_in, relu=relu,
+                                                    want_amax=True)
+            want, want_amax = quant.int8_conv3d_fused_reference(x, w_q, s_w, b, k, bound_in,
+                                                                relu=relu, want_amax=True)
+            torch.cuda.synchronize()
+            if got.dtype != torch.bfloat16 or got.shape != (B, cout, r, r, r):
+                fail(f"int8 kernel output {got.dtype} {tuple(got.shape)} at "
+                     f"{(B, cin, cout, k, r)}")
+            n_diff = int((got != want).sum())
+            err = (got.float() - want.float()).abs().max().item()
+            max_err = max(max_err, err)
+            if n_diff or not torch.equal(got_amax, want_amax):
+                fail(f"int8 kernel differs from its plain version at {(B, cin, cout, k, r)}, "
+                     f"relu={relu}, bound {'forwarded' if bound_in is not None else 'max|x|'}: "
+                     f"{n_diff} outputs, amax {got_amax.item()} vs "
+                     f"{want_amax.item()}")
+        ms = cuda_median_ms(lambda: int8_cuda.int8_conv3d_cuda(
+            x, w_q, s_w, b, k, x_amax, relu=True, want_amax=True), warmup=2, iters=10)
         ops = 2.0 * B * r ** 3 * cout * k ** 3 * cin
-        times.append({"B": B, "cin": cin, "cout": cout, "k": k, "r": r, "ms": ms,
-                      "tops": ops / ms / 1e9})
-        print(f"int8 kernel [B={B}, cin={cin}, cout={cout}, k={k}, r={r}]: {n_diff} of "
-              f"{got.numel()} outputs differ from the plain version, max abs err {err:.3e}; "
-              f"{ms:.4f} ms, {ops / ms / 1e9:.1f} TOPS", flush=True)
-        if n_diff:
-            fail(f"int8 kernel differs from its plain version at {(B, cin, cout, k, r)}")
-    widest = max(times, key=lambda t: t["B"] * t["r"] ** 3 * t["cout"] * t["k"] ** 3 * t["cin"])
+        nbytes = B * r ** 3 * (cin + cout) * 2 + w_q.numel() + cout * 8 + 8
+        bound_ms, bound_by = bound(ops, nbytes, INT8_OPS_PER_S)
+        lib_ms = int_mm_ms(args, B, r) if k == 1 else None
+        bm, bn = int8_cuda.tile_shape(B * r ** 3, cout, int8_cuda.sm_count(x.device.index))
+        rows.append({"B": B, "cin": cin, "cout": cout, "k": k, "r": r, "tile": [bm, bn],
+                     "ms": ms, "tops": ops / ms / 1e9, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms})
+        lib = "" if lib_ms is None else f", torch._int_mm {lib_ms:.4f} ms"
+        print(f"int8 kernel [B={B}, cin={cin}, cout={cout}, k={k}, r={r}, tile {bm}x{bn}]: "
+              f"identical to the plain version (ReLU off and on, forwarded bound and max|x|, "
+              f"max|out| too); {ms:.4f} ms, "
+              f"{ops / ms / 1e9:.1f} TOPS, bound {bound_ms:.4f} ms ({bound_by}){lib}",
+              flush=True)
+    widest = max(rows, key=lambda t: t["B"] * t["r"] ** 3 * t["cout"] * t["k"] ** 3 * t["cin"])
     args = int8_case(gen, dev, widest["B"], widest["cin"], widest["cout"], widest["k"],
                      widest["r"])
     k = widest["k"]
-    kernel_ms = cuda_median_ms(lambda: int8_cuda.int8_conv3d_cuda(*args, k))
-    plain_ms = cuda_median_ms(lambda: quant.int8_conv3d_reference(*args, k), warmup=1, iters=3)
-    tops = widest["tops"] * widest["ms"] / kernel_ms
-    print(f"time: int8 kernel {kernel_ms:.4f} ms ({tops:.1f} int8 TOPS), plain {plain_ms:.4f} "
-          f"ms at the widest conv [B={widest['B']}, cin={widest['cin']}, "
-          f"cout={widest['cout']}, k={k}, r={widest['r']}] [{card}]", flush=True)
-    return max_err, kernel_ms, plain_ms, tops, times
+    widest = dict(widest)
+    widest["ms"] = cuda_median_ms(lambda: int8_cuda.int8_conv3d_cuda(
+        *args[:4], k, args[4], relu=True, want_amax=True))
+    widest["plain_ms"] = cuda_median_ms(lambda: quant.int8_conv3d_fused_reference(
+        *args[:4], k, args[4], relu=True, want_amax=True), warmup=1, iters=3)
+    widest["tops"] = 2.0 * widest["B"] * widest["r"] ** 3 * widest["cout"] * k ** 3 * \
+        widest["cin"] / widest["ms"] / 1e9
+    print(f"time: int8 kernel {widest['ms']:.4f} ms ({widest['tops']:.1f} int8 TOPS, "
+          f"{100 * widest['bound_ms'] / widest['ms']:.1f}% of its bound "
+          f"{widest['bound_ms']:.4f} ms), plain {widest['plain_ms']:.4f} ms at the widest conv "
+          f"[B={widest['B']}, cin={widest['cin']}, cout={widest['cout']}, k={k}, "
+          f"r={widest['r']}] [{card}]", flush=True)
+    return max_err, rows, widest
+
+
+def device_launches(fn) -> int:
+    """Device launches (kernels and memsets) of one call of `fn`, from
+    torch.profiler's device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.self_device_time_total > 0)
 
 
 def check_extraction(dev, data, shape, radii_frac):
@@ -351,7 +447,7 @@ def check_extraction(dev, data, shape, radii_frac):
     import numpy as np
     import torch
 
-    from nestinet_tpu.data.pcpnet import _load_cached
+    from nestinet_tpu_torch.data.pcpnet import _load_cached
     from nestinet_tpu_torch.infer.device_pipeline import _dataset_window_caps
     from nestinet_tpu_torch.ops import ball_query as bq
 
@@ -399,7 +495,7 @@ def check_outputs(data, out_dir, testset, n_experts):
     RMS; returns the evaluation summary."""
     import numpy as np
 
-    from nestinet_tpu.eval.evaluate import evaluate_dataset
+    from nestinet_tpu_torch.eval.evaluate import evaluate_dataset
 
     with open(os.path.join(data, testset + ".txt")) as f:
         shapes = [s.strip() for s in f if s.strip()]
@@ -470,6 +566,29 @@ def device_time_split(fn):
     if total <= 0:
         return float("nan"), float("nan"), float("nan")
     return total / 1e3, conv / total, int8 / total
+
+
+def int8_launch_counts(model, grid, real) -> dict:
+    """Device launches under int8 (`torch.profiler`): one routed batch, its
+    int8 kernel launches, one conv of the manager with a forwarded bound
+    (incep0's k = 3 conv on its 1x1x1 conv's output) and the grid's first
+    conv."""
+    import torch
+
+    from nestinet_tpu_torch.infer.predict import route_sparse
+    from nestinet_tpu_torch.ops.kernels import int8_cuda
+
+    x = grid.permute(0, 4, 1, 2, 3)  # the manager's NCDHW input
+    block = model.manager.backbone.incep0
+    with torch.inference_mode():
+        one = block.conv1(x)
+        int8_cuda.KERNEL.reset_launches()
+        route_sparse(model, grid, real)
+        kernel = int8_cuda.KERNEL.launches["int8_conv3d"]
+        return {"routed_batch": device_launches(lambda: route_sparse(model, grid, real)),
+                "int8_kernel": kernel,
+                "per_conv": device_launches(lambda: block.conv2(one)),
+                "per_first_conv": device_launches(lambda: block.conv1(x))}
 
 
 def one_batch(model, grid, real):
@@ -565,13 +684,13 @@ def main(argv=None) -> int:
             fail(f"mups_kernel_exp: block_b={r['block_b']} err {r['max_abs_err']}")
 
     # ---- 5. int8 kernel against its plain version at every flagship shape ----
-    i8_err, i8_ms, i8_plain_ms, i8_tops, i8_times = check_int8_kernel(gen, dev, card)
+    i8_err, i8_rows, i8_widest = check_int8_kernel(gen, dev, card)
 
-    from nestinet_tpu.core.config import Config
-    from nestinet_tpu.core.rundir import RunDir
-    from nestinet_tpu.data.loader import get_data_loader
-    from nestinet_tpu.data.synthetic import build_protocol_benchmark
     from nestinet_tpu_torch.core import checkpoint
+    from nestinet_tpu_torch.core.config import Config
+    from nestinet_tpu_torch.core.rundir import RunDir
+    from nestinet_tpu_torch.data.loader import get_data_loader
+    from nestinet_tpu_torch.data.synthetic import build_protocol_benchmark
     from nestinet_tpu_torch.infer.device_pipeline import extract_batch, predict_shapes_device
     from nestinet_tpu_torch.infer.predict import load_run, pad_batch, predict_shapes
     from nestinet_tpu_torch.models import build_model
@@ -662,8 +781,7 @@ def main(argv=None) -> int:
 
         loader, _ = get_data_loader(
             "testset.txt", indir=data, batch_size=HOST_BATCH, patch_radius=cfg.patch_radius,
-            points_per_patch=cfg.num_point, outputs=(), seed=cfg.seed,
-            patch_sample_order="full", workers=8,
+            points_per_patch=cfg.num_point, seed=cfg.seed, workers=8,
         )
         batch = pad_batch(next(iter(loader)), HOST_BATCH)
         h_points = torch.from_numpy(batch["points"]).to(dev)
@@ -707,7 +825,7 @@ def main(argv=None) -> int:
             mgr_split = {"f32": device_time_split(lambda: model.manager_probs(grid))}
             mgr_ms = {"f32": cuda_median_ms(lambda: model.manager_probs(grid), warmup=2,
                                             iters=10)}
-        gaps = {}
+        gaps, launch_counts = {}, {}
         for label, dtype, fold in DTYPE_PATHS:
             _, _, _, m = load_run(rd.path, dev, dtype, fold)
             with torch.inference_mode():
@@ -730,11 +848,18 @@ def main(argv=None) -> int:
             with torch.inference_mode():
                 mgr_split[label] = device_time_split(lambda: m.manager_probs(g))
                 mgr_ms[label] = cuda_median_ms(lambda: m.manager_probs(g), warmup=2, iters=10)
+                if dtype == "int8":
+                    launch_counts[label] = int8_launch_counts(m, g, real)
             del m
         for label, (dev_ms, conv, int8) in mgr_split.items():
             print(f"time: manager {label} {mgr_ms[label]:.3f} ms per batch of {DEVICE_BATCH}; "
                   f"profiled {dev_ms:.3f} ms of device time, convolutions {100 * conv:.1f}%, "
                   f"int8 kernel {100 * int8:.1f}% [{card}]", flush=True)
+        for label, c in launch_counts.items():
+            print(f"launches {label}: {c['routed_batch']} device launches per routed batch of "
+                  f"{DEVICE_BATCH} ({c['int8_kernel']} of the int8 kernel), "
+                  f"{c['per_conv']} per conv with a forwarded bound, "
+                  f"{c['per_first_conv']} for the grid's first conv", flush=True)
 
         # ---- 12. times ----
         k1_ms, plain_ms = {}, {}
@@ -749,6 +874,10 @@ def main(argv=None) -> int:
                   f"rows (N=512, K=512) [{card}]", flush=True)
         blocked = {bb: cuda_median_ms(lambda bb=bb: mups_cuda.tdmfv_n_est_blocked_cuda(
             pts, *gmm_t, n_eff_rows, bb)) for bb in BLOCKS}
+        # both kernels do the same work on these rows: one bound
+        k1_bound = k2_bound = mups_bound(n_eff_rows, 512, gmm_t[0].numel())
+        print(f"bound: MuPS kernels {k1_bound[0]:.4f} ms ({k1_bound[1]}) per {R} rows",
+              flush=True)
         print(f"time: blocked MuPS kernel per {R} rows: " + ", ".join(
             f"block_b={bb} {ms:.4f} ms" for bb, ms in blocked.items()) + f" [{card}]",
             flush=True)
@@ -770,8 +899,9 @@ def main(argv=None) -> int:
         "forward_ms_b128": fwd_ms, "manager_ms_b256": mgr_ms, "manager_split_b256": mgr_split,
         "device_sparse": dev_sparse, "host_sparse": host_sparse, "host_dense": host_dense,
         "device_sparse_dtypes": dtype_runs, "dtype_gaps_one_batch": gaps,
-        "int8_max_abs_err": i8_err, "int8_ms_widest": i8_ms, "int8_plain_ms_widest": i8_plain_ms,
-        "int8_tops_widest": i8_tops, "int8_by_shape": i8_times,
+        "int8_max_abs_err": i8_err, "int8_widest": i8_widest, "int8_by_shape": i8_rows,
+        "int8_launch_counts": launch_counts, "mups_bound_ms": {"kernel": k1_bound,
+                                                              "blocked": k2_bound},
         "routed_vs_dense_normals_max_abs_err": route_err,
         "batch_normals_max_abs_err": nerr,
     })
@@ -791,6 +921,9 @@ def main(argv=None) -> int:
             "max_abs_err": k1_err,
             "ms": k1_ms[R],
             "plain_ms": plain_ms[R],
+            "bound_ms": k1_bound[0],
+            "bound_by": k1_bound[1],
+            "library_ms": None,
         },
         {
             "name": "tdmfv_n_est_blocked",
@@ -801,6 +934,9 @@ def main(argv=None) -> int:
             "max_abs_err": k2_err,
             "ms": blocked[max(BLOCKS)],
             "plain_ms": plain_ms[R],
+            "bound_ms": k2_bound[0],
+            "bound_by": k2_bound[1],
+            "library_ms": None,
             "ms_by_block_b": blocked,
         },
         {
@@ -809,10 +945,15 @@ def main(argv=None) -> int:
             "source": "nestinet_tpu_torch/csrc/int8_conv.cu",
             "replaces": "nestinet_tpu/ops/quant.py:85",
             "launches": dtype_runs["int8"]["launches"]["int8_conv3d"],
+            "launches_int8_fold": dtype_runs["int8+fold"]["launches"]["int8_conv3d"],
             "max_abs_err": i8_err,
-            "ms": i8_ms,
-            "plain_ms": i8_plain_ms,
-            "tops": i8_tops,
+            "ms": i8_widest["ms"],
+            "plain_ms": i8_widest["plain_ms"],
+            "bound_ms": i8_widest["bound_ms"],
+            "bound_by": i8_widest["bound_by"],
+            "library_ms": None,
+            "tops": i8_widest["tops"],
+            "by_shape": i8_rows,
         },
     ]}))
     print(card)

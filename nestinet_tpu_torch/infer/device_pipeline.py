@@ -31,9 +31,8 @@ import time
 import numpy as np
 import torch
 
-from nestinet_tpu.data.pcpnet import _load_cached
-
 from ..core.device import resolve_device, set_f32_numerics
+from ..data.pcpnet import _load_cached
 from ..ops.ball_query import build_grid, extract_patches, window_occupancy_np
 from .predict import check_moe_inference, load_run, serve_grid
 from .writer import ShapeScatterWriter

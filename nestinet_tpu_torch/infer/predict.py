@@ -32,12 +32,11 @@ import time
 import numpy as np
 import torch
 
-from nestinet_tpu.core.config import Config
-from nestinet_tpu.core.rundir import RunDir
-from nestinet_tpu.data.loader import get_data_loader
-
 from ..core import checkpoint
+from ..core.config import Config
 from ..core.device import resolve_device, set_f32_numerics
+from ..core.rundir import RunDir
+from ..data.loader import get_data_loader
 from ..models import build_model
 from ..ops.fold import fold_bn_
 from ..ops.gmm import GridGMM
@@ -157,12 +156,10 @@ def predict_shapes(
         batch_size=batch_size,
         patch_radius=cfg.patch_radius,
         points_per_patch=cfg.num_point,
-        outputs=(),  # no targets at test time
         seed=cfg.seed,
         patch_center=cfg.patch_center,
         use_pca=cfg.use_pca,
         cache_capacity=cfg.cache_capacity,
-        patch_sample_order="full",
         workers=loader_workers,
         sparse_patches=sparse_patches,
     )

@@ -6,7 +6,7 @@ Streaming inference sees one flat stream of patches (all points of all
 shapes, in order); the writer scatters per-batch outputs back into
 per-shape buffers and writes `<shape>.normals`, `.experts` and
 `.experts_probs` when a shape completes, byte-identical to np.savetxt
-through `nestinet_tpu.core.textio`.
+through the port's `core/textio.py`.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import os
 
 import numpy as np
 
-from nestinet_tpu.core import textio
+from ..core import textio
 
 
 class ShapeScatterWriter:

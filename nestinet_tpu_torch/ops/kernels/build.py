@@ -1,13 +1,14 @@
 """Build the port's CUDA kernels with nvcc at first use and load them.
 
 Libraries: `csrc/mups_kernel.cu` (the two MuPS kernels, `mups_cuda.py`) and
-`csrc/int8_conv.cu` (the int8 implicit-GEMM conv, `int8_cuda.py`).  Each
+`csrc/int8_conv.cu` (the fused int8 implicit-GEMM conv, `int8_cuda.py`,
+which finds libcuda's `cuTensorMapEncodeTiled` with dlopen).  Each
 `csrc/<name>.cu` exposes a plain C interface and is compiled on its own
 into a shared library for sm_90a (no PyTorch headers, so a build takes
 seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -ldl -o _build/<name>-<hash>.so csrc/<name>.cu
 
 The library lands in `nestinet_tpu_torch/_build/` (listed in .gitignore),
 named by a hash of the source and the flags, so an edited source is rebuilt
@@ -32,7 +33,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-Xptxas", "-v", "-ldl",
 )
 
 

@@ -12,12 +12,15 @@ checkpoint serves in float32 or bfloat16.  The bias is added after the
 conv/matmul has been rounded, as a separate op in the input's dtype.
 
 int8 (`ops/quant.py`): a conv or linear whose weights were quantized at
-load (`quantize_()`) runs the int8 MAC kernel.  Its input's activation
-scale comes from an `ActQ` bound when the producer forwarded one: each
-quantized ConvBN3D emits max|out| of its BN(+ReLU) output, pools keep their
-input's bound, the Inception concat takes the max over its branches and the
-backbone flatten hands the bound to FC1 (JAX `ops/nn.py:39-64`).  Without a
-bound (the first conv of a CNN, FC2 onwards) the op reduces its own input.
+load (`quantize_()`) runs the int8 kernel, which quantizes its bfloat16
+input as it loads it.  Its input's activation scale comes from an `ActQ`
+bound when the producer forwarded one: each quantized ConvBN3D emits
+max|out| of its BN(+ReLU) output, pools keep their input's bound, the
+Inception concat takes the max over its branches and the backbone flatten
+hands the bound to FC1 (JAX `ops/nn.py:39-64`).  Without a bound (the first
+conv of a CNN, FC2 onwards) the op reduces its own input.  Where BatchNorm
+is folded (an identity), ReLU and the bound ride the kernel's epilogue: one
+launch per conv.
 
 Padding follows TensorFlow's SAME rule: the total pad is
 max((ceil(n/s) - 1) * s + k - n, 0) per axis, with the odd cell at the end
@@ -161,6 +164,11 @@ class ConvBN3D(nn.Module):
 
     def forward(self, x, relu: bool = True):
         x, x_amax = unwrap(x)
+        if self.conv.quantized and isinstance(self.bn, nn.Identity):
+            # BN folded: conv + ReLU + max|out| in one launch
+            c = self.conv
+            return ActQ(*quant.int8_conv3d_fused(x, c.w_q, c.w_scale, c.b, c.kernel, x_amax,
+                                                 relu=relu, want_amax=True))
         y = self.bn(self.conv(x, x_amax))
         if relu:
             y = F.relu(y)
@@ -180,6 +188,10 @@ class DenseBN(nn.Module):
 
     def forward(self, x) -> torch.Tensor:
         x, x_amax = unwrap(x)
+        if self.linear.quantized and not isinstance(self.bn, BatchNormEMA):
+            # no BN, or BN folded: the ReLU rides the int8 kernel's epilogue
+            lin = self.linear
+            return quant.linear_int8(x, lin.w_q, lin.w_scale, lin.b, x_amax, relu=self.relu)
         x = self.linear(x, x_amax)
         if self.bn is not None:
             x = self.bn(x)

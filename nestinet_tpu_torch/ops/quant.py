@@ -12,20 +12,25 @@ Counterpart of `nestinet_tpu/ops/quant.py`, with the same scheme:
   * the MAC: int8 x int8 -> int32, then the epilogue
     float(acc) * (s_w * s_x) + b in float32, rounded to bfloat16.
 
-Layouts.  The quantized activation is written channels-last, [B, D, H, W,
-cin_p], and the weights [cout, k^3, cin_p], with the channels zero-padded
-to cin_p, a multiple of 16: one reduction index (tap, channel) then runs
-along contiguous bytes, every 16-byte load stays inside one tap, and the
-odd widths of the flagship (cin 20, 42, 60, 126) need no tail code in the
-kernel.  Zero channels add nothing to the sum.  The output is bfloat16
-NCDHW, the layout of the blocks around it.
+Layouts.  The weights are packed [cout, k^3, cin_p], with the channels
+zero-padded to cin_p: 16, 32 or 64 up to 64 channels, else a multiple of
+128 (cin 20 -> 32, 42 and 60 -> 64, 126 -> 128).  One reduction index
+(tap, channel) then runs along contiguous bytes, and every 128-byte K tile
+of the kernel holds whole taps or one 128-channel slice of a tap.  Zero
+channels add nothing to the sum.  Activations stay bfloat16 NCDHW, the
+layout of the blocks around the kernel, in and out.
 
-`int8_conv3d` runs the hand-written CUDA kernel (`csrc/int8_conv.cu`) on a
-CUDA tensor and its plain version, `int8_conv3d_reference`, on a CPU
-tensor; that device check is the only place that chooses between the two.
-The plain version is exact: an integer-valued float64 conv (every partial
-sum is an integer below 2^53), then the same float32 epilogue in the same
-order, so the kernel can be held to it bit for bit.
+`int8_conv3d_fused` runs the hand-written CUDA kernel (`csrc/int8_conv.cu`)
+on a CUDA tensor: it quantizes the bfloat16 activation as it loads it, so
+the int8 activation never exists in device memory, and can apply ReLU and
+return max|out| (one launch for conv + ReLU + bound where BatchNorm is
+folded, as JAX fuses it).  On a CPU tensor it runs the plain version,
+`int8_conv3d_fused_reference`: `activation_scale`, `quantize_activation`
+and `int8_conv3d_reference` (+ ReLU + amax), composed; that device check is
+the only place that chooses between the two.  The plain version is exact:
+an integer-valued float64 conv (every partial sum is an integer below
+2^53), then the same float32 epilogue in the same order, so the kernel can
+be held to it bit for bit.
 
 The switch is PyTorch's: `quantize_(model)` replaces each conv's and
 linear's float kernel by its int8 kernel and scales, and a module runs the
@@ -40,13 +45,16 @@ import torch.nn.functional as F
 
 from .kernels import int8_cuda
 
-CIN_ALIGN = 16
+K_TILE = 128  # bytes of K per tile of the CUDA kernel
 
 
 def padded_channels(cin: int) -> int:
-    """The channel count of the packed int8 layouts: cin rounded up to a
-    multiple of 16."""
-    return -(-cin // CIN_ALIGN) * CIN_ALIGN
+    """The channel count of the packed int8 layouts: 16, 32 or 64 for up to
+    64 channels, else cin rounded up to a multiple of 128."""
+    for c in (16, 32, 64):
+        if cin <= c:
+            return c
+    return -(-cin // K_TILE) * K_TILE
 
 
 def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -67,15 +75,19 @@ def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def activation_scale(x: torch.Tensor, x_amax=None) -> torch.Tensor:
     """The per-tensor scale, a float32 0-d tensor: max(amax, 1e-12) / 127
-    from a forwarded bound, or from x's own max|x|."""
-    amax = x.abs().amax() if x_amax is None else x_amax
-    return torch.clamp(amax.to(torch.float32), min=1e-12) / 127.0
+    from a forwarded bound, or from x's own max|x|.  Divided by a 0-d
+    tensor, not a Python float: PyTorch's CUDA division by a Python scalar
+    multiplies by its reciprocal, which can differ from JAX's division in
+    the last bit."""
+    amax = torch.clamp((x.abs().amax() if x_amax is None else x_amax).to(torch.float32),
+                       min=1e-12)
+    return amax / torch.full((), 127.0, dtype=torch.float32, device=amax.device)
 
 
 def quantize_activation(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
     """x NCDHW [B, C, D, H, W] or [B, C] -> int8 [B, D, H, W, C_p] or
     [B, C_p]: clip(round(x / s_x), -127, 127), channels last, zero-padded
-    to a multiple of 16."""
+    to `padded_channels(C)` (the plain version's layout)."""
     q = torch.clamp(torch.round(x.to(torch.float32) / s_x), -127, 127).to(torch.int8)
     if q.dim() == 5:
         q = q.permute(0, 2, 3, 4, 1)
@@ -107,32 +119,48 @@ def int8_conv3d_reference(x_q, w_q, s_w, s_x, b, kernel: int) -> torch.Tensor:
     return _epilogue(acc, s_w, s_x, b)
 
 
-def int8_conv3d(x_q, w_q, s_w, s_x, b, kernel: int) -> torch.Tensor:
-    """The int8 MAC and its epilogue: the CUDA kernel on a CUDA tensor,
-    the plain version on a CPU tensor (shapes as int8_conv3d_reference)."""
-    if x_q.device.type == "cpu":
-        return int8_conv3d_reference(x_q, w_q, s_w, s_x, b, kernel)
-    return int8_cuda.int8_conv3d_cuda(x_q, w_q, s_w, s_x, b, kernel)
+def int8_conv3d_fused_reference(x, w_q, s_w, b, kernel: int, x_amax=None, *,
+                                relu: bool = False, want_amax: bool = False):
+    """The plain version of the fused kernel: x bfloat16 [B, C, D, H, W] ->
+    (bfloat16 [B, cout, D, H, W], max|out| float32 [] or None): the scale
+    from `x_amax` (or x's own max|x|), the quantize pass, the exact int8
+    conv and its epilogue, then ReLU if asked."""
+    s_x = activation_scale(x, x_amax)
+    y = int8_conv3d_reference(quantize_activation(x, s_x), w_q, s_w, s_x, b, kernel)
+    if relu:
+        y = F.relu(y)
+    return y, (y.abs().amax().to(torch.float32) if want_amax else None)
+
+
+def int8_conv3d_fused(x, w_q, s_w, b, kernel: int, x_amax=None, *, relu: bool = False,
+                      want_amax: bool = False):
+    """Quantize, int8 MAC, epilogue (+ ReLU, + max|out|): the CUDA kernel on
+    a CUDA tensor, the plain version on a CPU tensor (shapes and outputs as
+    `int8_conv3d_fused_reference`).  Without a forwarded bound the scale
+    comes from max|x|, reduced here first."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"int8 serving computes in bfloat16, got {x.dtype}")
+    if x.device.type == "cpu":
+        return int8_conv3d_fused_reference(x, w_q, s_w, b, kernel, x_amax, relu=relu,
+                                           want_amax=want_amax)
+    amax = x.abs().amax() if x_amax is None else x_amax
+    return int8_cuda.int8_conv3d_cuda(x.contiguous(), w_q, s_w, b, kernel,
+                                      amax.to(torch.float32), relu=relu,
+                                      want_amax=want_amax)
 
 
 def conv3d_int8(x, w_q, s_w, b, kernel: int, x_amax=None) -> torch.Tensor:
     """Quantized drop-in for the SAME conv plus bias (JAX `conv_nd_int8`):
     x bfloat16 NCDHW -> bfloat16 NCDHW."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"int8 serving computes in bfloat16, got {x.dtype}")
-    s_x = activation_scale(x, x_amax)
-    return int8_conv3d(quantize_activation(x, s_x), w_q, s_w, s_x, b, kernel)
+    return int8_conv3d_fused(x, w_q, s_w, b, kernel, x_amax)[0]
 
 
-def linear_int8(x, w_q, s_w, b, x_amax=None) -> torch.Tensor:
-    """Quantized drop-in for x @ w + b (JAX `linear_int8`): x bfloat16
-    [B, cin] -> bfloat16 [B, cout], through the conv with D = H = W = 1 and
-    a 1^3 kernel."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"int8 serving computes in bfloat16, got {x.dtype}")
-    s_x = activation_scale(x, x_amax)
-    x_q = quantize_activation(x, s_x)
-    out = int8_conv3d(x_q.view(x_q.shape[0], 1, 1, 1, -1), w_q, s_w, s_x, b, 1)
+def linear_int8(x, w_q, s_w, b, x_amax=None, *, relu: bool = False) -> torch.Tensor:
+    """Quantized drop-in for x @ w + b (JAX `linear_int8`), + ReLU if asked:
+    x bfloat16 [B, cin] -> bfloat16 [B, cout], through the conv with
+    D = H = W = 1 and a 1^3 kernel."""
+    out, _ = int8_conv3d_fused(x.reshape(x.shape[0], -1, 1, 1, 1), w_q, s_w, b, 1, x_amax,
+                               relu=relu)
     return out.view(x.shape[0], -1)
 
 

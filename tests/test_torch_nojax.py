@@ -1,20 +1,31 @@
-"""The port imports no JAX, haiku or flax, directly or through anything it
-imports: the GPU machine it serves on has none of them.
+"""The port imports no JAX, haiku or flax, and nothing of the JAX package
+`nestinet_tpu`, directly or through anything it imports: the GPU machine it
+serves on has none of the former, and the reference must not change the
+port behind its back.
 
-A subprocess blocks those packages in `sys.modules` before anything else,
-imports every module of the port, and runs a tiny CPU forward, dense and
-routed on device-extracted patches, then the same model folded and in int8.
+A subprocess blocks those packages and `nestinet_tpu` in `sys.modules`
+before anything else, imports every module of the port, and runs a tiny CPU
+forward, dense and routed on device-extracted patches, then the same model
+folded and in int8.  An AST scan of every file of the port and of
+`chip_smoke.py` fails on any import of `nestinet_tpu` or its submodules,
+including the imports inside functions that the subprocess never reaches.
 """
 
+import ast
+import glob
 import os
 import subprocess
 import sys
 import textwrap
 
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 SCRIPT = textwrap.dedent(
     """
     import sys
-    for name in ("jax", "jaxlib", "haiku", "flax", "optax", "msgpack"):
+    for name in ("jax", "jaxlib", "haiku", "flax", "optax", "msgpack", "nestinet_tpu"):
         sys.modules[name] = None  # any import of them now raises ImportError
 
     import importlib
@@ -22,6 +33,18 @@ SCRIPT = textwrap.dedent(
         "nestinet_tpu_torch",
         "nestinet_tpu_torch.core.device",
         "nestinet_tpu_torch.core.checkpoint",
+        "nestinet_tpu_torch.core.config",
+        "nestinet_tpu_torch.core.rundir",
+        "nestinet_tpu_torch.core.textio",
+        "nestinet_tpu_torch.data",
+        "nestinet_tpu_torch.data.pcpnet",
+        "nestinet_tpu_torch.data.dataset",
+        "nestinet_tpu_torch.data.loader",
+        "nestinet_tpu_torch.data.native",
+        "nestinet_tpu_torch.data.synthetic",
+        "nestinet_tpu_torch.eval",
+        "nestinet_tpu_torch.eval.evaluate",
+        "nestinet_tpu_torch.eval.metrics",
         "nestinet_tpu_torch.ops.gmm",
         "nestinet_tpu_torch.ops.mups",
         "nestinet_tpu_torch.ops.nn",
@@ -40,15 +63,17 @@ SCRIPT = textwrap.dedent(
         "nestinet_tpu_torch.infer.device_pipeline",
         "nestinet_tpu_torch.ops.ball_query",
         "nestinet_tpu_torch.scripts.mups_kernel_exp",
+        "nestinet_tpu_torch.scripts.int8_kernel_parts",
+        "nestinet_tpu_torch.scripts.serve_compare",
         "nestinet_tpu_torch.cli.test",
-        "nestinet_tpu.eval.evaluate",
-        "nestinet_tpu.data.synthetic",
     ):
         importlib.import_module(mod)
 
     import torch
     torch.set_num_threads(1)
-    from nestinet_tpu.core.config import Config
+    from nestinet_tpu_torch.core.config import Config
+    from nestinet_tpu_torch.eval.evaluate import evaluate_dataset
+    from nestinet_tpu_torch.data.synthetic import build_protocol_benchmark
     from nestinet_tpu_torch.models import build_model
     from nestinet_tpu_torch.models.base import init_params
     from nestinet_tpu_torch.ops.gmm import get_3d_grid_gmm
@@ -93,17 +118,75 @@ SCRIPT = textwrap.dedent(
         normals, ids, probs = route_sparse(q, grid, 3)
     assert normals.dtype == probs.dtype == torch.float32
     assert torch.isfinite(normals).all() and torch.isfinite(probs).all()
-    assert all(sys.modules.get(n) is None for n in ("jax", "haiku", "flax"))
+    import os, tempfile
+    import numpy as np
+    from nestinet_tpu_torch.core import textio
+    with tempfile.TemporaryDirectory() as tmp:
+        build_protocol_benchmark(tmp, n_points=60, n_pidx=10, seed=3)
+        names = [s.strip() for s in open(os.path.join(tmp, "testset.txt")) if s.strip()]
+        for name in names:
+            nrm = np.loadtxt(os.path.join(tmp, name + ".normals"))
+            textio.savetxt(os.path.join(tmp, name + ".pred.normals"), nrm)
+        res = os.path.join(tmp, "res")
+        os.makedirs(res)
+        for name in names:
+            os.replace(os.path.join(tmp, name + ".pred.normals"),
+                       os.path.join(res, name + ".normals"))
+        summary = evaluate_dataset(tmp, res, "testset", log=lambda *_: None)
+    assert summary["rms"] < 1e-3 and summary["pgp5"] == 1.0
+    assert all(sys.modules.get(n) is None
+               for n in ("jax", "haiku", "flax", "nestinet_tpu"))
     print("NOJAX_OK")
     """
 )
 
 
 def test_port_imports_and_runs_without_jax():
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT], capture_output=True, text=True,
-        timeout=300, cwd=repo,
+        timeout=300, cwd=REPO,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NOJAX_OK" in proc.stdout
+
+
+def _port_files():
+    files = sorted(glob.glob(os.path.join(REPO, "nestinet_tpu_torch", "**", "*.py"),
+                             recursive=True))
+    return files + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def _jax_package_imports(path):
+    """(line, module) of every import of `nestinet_tpu` or a submodule of
+    it in the file, at any depth (inside functions too)."""
+    tree = ast.parse(open(path).read(), filename=path)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names = [node.module]
+        else:
+            continue
+        found += [(node.lineno, n) for n in names
+                  if n == "nestinet_tpu" or n.startswith("nestinet_tpu.")]
+    return found
+
+
+def test_port_files_import_nothing_of_the_jax_package():
+    files = _port_files()
+    assert len(files) > 30
+    bad = {os.path.relpath(p, REPO): hits for p in files if (hits := _jax_package_imports(p))}
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("source", [
+    "import nestinet_tpu",
+    "import nestinet_tpu.core.config as c",
+    "from nestinet_tpu.data import loader",
+    "def f():\n    from nestinet_tpu.eval.evaluate import evaluate_dataset",
+])
+def test_the_scan_finds_an_import_of_the_jax_package(tmp_path, source):
+    path = tmp_path / "mod.py"
+    path.write_text(source + "\nimport nestinet_tpu_torch\n")
+    assert len(_jax_package_imports(str(path))) == 1
