@@ -11,14 +11,20 @@ and prints no result):
      MuPS kernels, and `csrc/int8_conv.cu`, the int8 conv) with nvcc into
      the gitignored build directory, one nvcc per library, started
      together; print their ptxas lines;
-  3. MuPS kernel (one block per row) against its plain PyTorch version at
-     the serving shapes (384 and 768 rows of 512 points, 512 Gaussians),
-     unpadded, randomly padded and with n_eff = 0 rows, at atol 1e-5; its
-     gradient at a small shape at atol 1e-4;
+  3. MuPS kernel (one row per ticket of a persistent grid) against its
+     plain PyTorch version at the serving shapes (384 and 768 rows of 512
+     points, 512 Gaussians), unpadded, randomly padded and with n_eff = 0
+     rows, at atol 1e-5; its gradient at a small shape at atol 1e-4; both
+     kernels on 256 random rows with 10^3 Gaussians (the instance for
+     K > 512) at atol 1e-5, the blocked one identical to kernel 1;
   4. blocked MuPS kernel at 768 rows for block_b in {1, 2, 4, 8}: against
      the plain version at atol 1e-5 on the same three row sets, and against
      the first kernel (identical); 766 rows in blocks of 4 raise; then its
-     entry point, `nestinet_tpu_torch.scripts.mups_kernel_exp.main`;
+     entry point, `nestinet_tpu_torch.scripts.mups_kernel_exp.main`; then
+     both kernels on the 768 rows of one served batch at PCPNet's density
+     (`mups_kernel_parts.served_rows`: 256 patches x 3 radii extracted on
+     the card from a 100,000-point synthetic sphere, n_eff about 31, 270 and
+     512), held the same way and timed;
   5. the fused int8 conv kernel (bf16 in, quantized on load, wgmma; ReLU
      and max|out| in its epilogue) against its plain version (the quantize
      pass, an exact integer conv in float64 and the same float32 epilogue)
@@ -60,8 +66,9 @@ and prints no result):
      (convolutions, int8 kernel) in each dtype; under int8 the device
      launches of one routed batch and of one conv (`torch.profiler`);
  12. times: both MuPS kernels and their plain version (CUDA events, median
-     after warm-up), extraction per batch, the forward, and each serving
-     path's patches/s and peak memory.
+     after warm-up) on random and on served rows, each beside its bound,
+     extraction per batch, the forward, and each serving path's patches/s
+     and peak memory.
 
 The script ran in about 300 s on an H100 (a quarter of its 1,200 s
 limit), so the only cut of depth is host-dense's, which serves two of the
@@ -105,8 +112,22 @@ EXTRACT_ATOL = 1e-6
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
-FP32_FLOPS_PER_S = 67e12
-FP64_FLOPS_PER_S = 34e12  # FP64 outside the tensor cores
+# Instruction rates of one H100 SXM, per pipe: 132 SMs at 1.98 GHz times the
+# instructions an SM completes a clock (the CUDA programming guide's table)
+SM_CLOCKS_PER_S = 132 * 1.98e9
+FP32_INSTR_PER_S = 128 * SM_CLOCKS_PER_S  # 33.5e12
+MUFU_INSTR_PER_S = 16 * SM_CLOCKS_PER_S  # 4.2e12: exp2, reciprocal, rsqrt
+FP64_INSTR_PER_S = 64 * SM_CLOCKS_PER_S  # 16.7e12
+# The least work of one real (point, Gaussian) pair of the MuPS statistics:
+# float32 instructions of one evaluation (3 subtracts; 3 shared-divisor
+# divisions, a multiply and 2 FMAs each; |s|^2, 3 multiplies and 2 adds;
+# the pdf, 3 multiplies; q, one more division; d_pi, a subtract and a
+# multiply; the 6 products q s and q (s^2 - 1) and their 3 subtracts; 13
+# max/min), one exponential and 8 float64 sums (the denominator, d_pi's and
+# the six of q s and q (s^2 - 1))
+MUPS_FP32_PER_PAIR = 3 + 3 * 3 + 5 + 3 + 3 + 2 + 9 + 13  # 47
+MUPS_MUFU_PER_PAIR = 1
+MUPS_FP64_PER_PAIR = 8
 
 
 def fail(msg: str):
@@ -227,6 +248,37 @@ def check_gradient(gen, dev):
         fail(f"gradient through the kernel's Function disagrees: {gerr}")
 
 
+def check_wide(gen, dev, R=256, N=512, m=10):
+    """Phase 3 with m^3 > 512 Gaussians, the kernels' 1024-thread instance:
+    kernel 1 and the blocked kernel at every block_b against the plain
+    version (atol 1e-5), the blocked one identical to kernel 1; returns the
+    largest error."""
+    import torch
+
+    from nestinet_tpu_torch.ops import mups as mups_ops
+    from nestinet_tpu_torch.ops.gmm import get_3d_grid_gmm
+    from nestinet_tpu_torch.ops.kernels import mups_cuda
+
+    gmm_t = tuple(torch.from_numpy(a).to(dev)
+                  for a in get_3d_grid_gmm([m, m, m], variance=1.0 / m ** 2).astuple())
+    pts, n_eff = flagship_rows(gen, R, N, "zeros", dev)
+    want = mups_ops.tdmfv_n_est_reference(pts, *gmm_t, n_eff)
+    one = mups_cuda.tdmfv_n_est_cuda(pts, *gmm_t, n_eff)
+    torch.cuda.synchronize()
+    err = (one - want).abs().max().item()
+    if not (torch.isfinite(one).all() and err <= KERNEL_ATOL):
+        fail(f"MuPS kernel disagrees with its plain version at K={m ** 3}: {err}")
+    for bb in BLOCKS:
+        got = mups_cuda.tdmfv_n_est_blocked_cuda(pts, *gmm_t, n_eff, bb)
+        torch.cuda.synchronize()
+        if not torch.equal(got, one):
+            fail(f"blocked kernel differs from the one-row kernel at K={m ** 3} (block_b={bb})")
+    print(f"kernel vs plain [R={R}, K={m ** 3}, random and n_eff = 0 rows]: max abs err "
+          f"{err:.3e} (atol {KERNEL_ATOL}); blocked kernel identical at block_b {BLOCKS}",
+          flush=True)
+    return err
+
+
 def check_blocked(gen, dev, gmm_t, R=3 * DEVICE_BATCH, N=512):
     """Phase 4: the blocked kernel against the plain version and against
     the one-row-per-block kernel; (max err to plain, max diff to kernel 1)."""
@@ -299,18 +351,72 @@ def bound(ops: float, nbytes: float, ops_per_s: float):
 
 
 def mups_bound(n_eff, N: int, K: int):
-    """The MuPS kernel's bound for these rows: per (real point, Gaussian)
-    pair 2 exponentials and 58 float32 operations (two passes of the
-    scaled offsets and the weighted pdf, then the 20 statistics) and 8
-    float64 adds (the denominator, then pi and the six sums); rows past
-    n_eff are never evaluated.  Bytes: the points, n_eff, the Gaussians'
-    8 K floats, the [20, K] output rows."""
+    """The MuPS kernels' bound for these rows: the least time of each pipe
+    for one evaluation of every real (point, Gaussian) pair
+    (MUPS_*_PER_PAIR at the H100's instruction rates: FP32 128, MUFU 16,
+    FP64 64 a clock per SM), the largest of the three, or the bytes (the
+    points, n_eff, the Gaussians' 8 K floats, the [20, K] output rows) at
+    3.35 TB/s if those take longer.  Rows past n_eff are never evaluated.
+    (ms, "operations" or "bytes")."""
     rows = n_eff.numel()
-    pairs = float((n_eff.clamp(max=N - 1) + 1).sum().item()) * K
-    ms = max(pairs * 60 / FP32_FLOPS_PER_S, pairs * 8 / FP64_FLOPS_PER_S) * 1e3
-    nbytes = rows * (3 * N * 4 + 4) + 8 * K * 4 + rows * 20 * K * 4
-    return (ms, "operations") if ms >= nbytes / HBM_BYTES_PER_S * 1e3 else \
-        (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
+    pairs = float((n_eff.clamp(min=-1, max=N - 1) + 1).sum().item()) * K
+    ms = max(pairs * MUPS_FP32_PER_PAIR / FP32_INSTR_PER_S,
+             pairs * MUPS_MUFU_PER_PAIR / MUFU_INSTR_PER_S,
+             pairs * MUPS_FP64_PER_PAIR / FP64_INSTR_PER_S) * 1e3
+    t_bytes = (rows * (3 * N * 4 + 4) + 8 * K * 4 + rows * 20 * K * 4) / HBM_BYTES_PER_S * 1e3
+    return (ms, "operations") if ms >= t_bytes else (t_bytes, "bytes")
+
+
+def check_served_rows(dev, gmm_t, card):
+    """Phase 4 on served rows: both MuPS kernels against the plain version
+    on the 768 rows of one batch extracted on the card at PCPNet's density
+    (atol 1e-5), the blocked kernel identical to kernel 1 at every block_b;
+    each timed there.  Returns the numbers."""
+    import torch
+
+    from nestinet_tpu_torch.core.device import cuda_median_ms
+    from nestinet_tpu_torch.ops import mups as mups_ops
+    from nestinet_tpu_torch.ops.kernels import mups_cuda
+    from nestinet_tpu_torch.scripts.mups_kernel_parts import served_rows
+
+    with torch.inference_mode():
+        pts, ne = served_rows(dev, SEED)
+    N = pts.shape[1]
+    by_radius = ne.reshape(-1, 3).float().mean(0).tolist()
+    print("served rows: n_eff mean by radius " + ", ".join(f"{v:.1f}" for v in by_radius),
+          flush=True)
+    want = mups_ops.tdmfv_n_est_reference(pts, *gmm_t, ne)
+    one = mups_cuda.tdmfv_n_est_cuda(pts, *gmm_t, ne)
+    torch.cuda.synchronize()
+    err = (one - want).abs().max().item()
+    print(f"kernel vs plain [served rows, R={pts.shape[0]}, n_eff min {int(ne.min())} mean "
+          f"{float(ne.float().mean()):.1f} max {int(ne.max())}]: max abs err {err:.3e} "
+          f"(atol {KERNEL_ATOL})", flush=True)
+    if not (torch.isfinite(one).all() and err <= KERNEL_ATOL):
+        fail(f"MuPS kernel disagrees with its plain version on served rows: {err}")
+    blocked_err = 0.0
+    for bb in BLOCKS:
+        got = mups_cuda.tdmfv_n_est_blocked_cuda(pts, *gmm_t, ne, bb)
+        torch.cuda.synchronize()
+        blocked_err = max(blocked_err, (got - want).abs().max().item())
+        if not torch.equal(got, one):
+            fail(f"blocked kernel differs from the one-row kernel on served rows "
+                 f"(block_b={bb})")
+    print(f"blocked kernel [served rows, block_b {BLOCKS}]: identical to the one-row kernel",
+          flush=True)
+    ms = cuda_median_ms(lambda: mups_cuda.tdmfv_n_est_cuda(pts, *gmm_t, ne))
+    blocked = {bb: cuda_median_ms(lambda bb=bb: mups_cuda.tdmfv_n_est_blocked_cuda(
+        pts, *gmm_t, ne, bb)) for bb in BLOCKS}
+    plain = cuda_median_ms(lambda: mups_ops.tdmfv_n_est_reference(pts, *gmm_t, ne),
+                           warmup=2, iters=10)
+    bound_ms = mups_bound(ne, N, gmm_t[0].numel())
+    print(f"time: MuPS kernel {ms:.4f} ms, blocked " + ", ".join(
+        f"block_b={bb} {t:.4f} ms" for bb, t in blocked.items()) + f", plain {plain:.4f} ms per "
+        f"{pts.shape[0]} served rows; bound {bound_ms[0]:.4f} ms ({bound_ms[1]}) [{card}]",
+        flush=True)
+    return {"max_abs_err": err, "blocked_max_abs_err": blocked_err, "ms": ms,
+            "blocked_ms": blocked, "plain_ms": plain, "bound": bound_ms,
+            "n_eff_mean": float(ne.float().mean()), "n_eff_mean_by_radius": by_radius}
 
 
 def int8_case(gen, dev, B, cin, cout, k, r):
@@ -670,6 +776,7 @@ def main(argv=None) -> int:
     k1_err = max(check_kernel(gen, dev, gmm_t, 3 * HOST_BATCH),
                  check_kernel(gen, dev, gmm_t, 3 * DEVICE_BATCH))
     check_gradient(gen, dev)
+    wide_err = check_wide(gen, dev)
 
     # ---- 4. blocked MuPS kernel, then its entry point ----
     k2_err, k2_diff = check_blocked(gen, dev, gmm_t)
@@ -682,6 +789,9 @@ def main(argv=None) -> int:
     for r in exp:
         if not r["max_abs_err"] <= KERNEL_ATOL:
             fail(f"mups_kernel_exp: block_b={r['block_b']} err {r['max_abs_err']}")
+    served = check_served_rows(dev, gmm_t, card)
+    k1_err = max(k1_err, wide_err, served["max_abs_err"])
+    k2_err = max(k2_err, wide_err, served["blocked_max_abs_err"])
 
     # ---- 5. int8 kernel against its plain version at every flagship shape ----
     i8_err, i8_rows, i8_widest = check_int8_kernel(gen, dev, card)
@@ -876,11 +986,13 @@ def main(argv=None) -> int:
             pts, *gmm_t, n_eff_rows, bb)) for bb in BLOCKS}
         # both kernels do the same work on these rows: one bound
         k1_bound = k2_bound = mups_bound(n_eff_rows, 512, gmm_t[0].numel())
-        print(f"bound: MuPS kernels {k1_bound[0]:.4f} ms ({k1_bound[1]}) per {R} rows",
-              flush=True)
         print(f"time: blocked MuPS kernel per {R} rows: " + ", ".join(
-            f"block_b={bb} {ms:.4f} ms" for bb, ms in blocked.items()) + f" [{card}]",
-            flush=True)
+            f"block_b={bb} {ms:.4f} ms ({ms / k1_ms[R]:.2f}x kernel 1)"
+            for bb, ms in blocked.items()) + f" [{card}]", flush=True)
+        print(f"time: MuPS kernel 1 {k1_ms[R]:.4f} ms per {R} random rows, bound "
+              f"{k1_bound[0]:.4f} ms ({k1_bound[1]}, {100 * k1_bound[0] / k1_ms[R]:.1f}%); "
+              f"{served['ms']:.4f} ms per {R} served rows, bound {served['bound'][0]:.4f} ms "
+              f"({100 * served['bound'][0] / served['ms']:.1f}%) [{card}]", flush=True)
         with torch.inference_mode():
             fwd_ms = cuda_median_ms(lambda: model(h_points, h_n_eff), warmup=2, iters=10)
         print(f"time: extraction {ex_ms:.3f} ms per batch of {DEVICE_BATCH} (3 radii, lanes "
@@ -894,8 +1006,10 @@ def main(argv=None) -> int:
 
     record.update({
         "kernel_max_abs_err": k1_err, "blocked_max_abs_err": k2_err,
+        "kernel_max_abs_err_k1000": wide_err,
         "blocked_max_diff_from_kernel": k2_diff, "kernel_ms": k1_ms, "plain_ms": plain_ms,
-        "blocked_ms": blocked, "mups_kernel_exp": exp, "extract_ms_b256": ex_ms,
+        "blocked_ms": blocked, "mups_kernel_exp": exp, "mups_served_rows": served,
+        "extract_ms_b256": ex_ms,
         "forward_ms_b128": fwd_ms, "manager_ms_b256": mgr_ms, "manager_split_b256": mgr_split,
         "device_sparse": dev_sparse, "host_sparse": host_sparse, "host_dense": host_dense,
         "device_sparse_dtypes": dtype_runs, "dtype_gaps_one_batch": gaps,
@@ -924,6 +1038,9 @@ def main(argv=None) -> int:
             "bound_ms": k1_bound[0],
             "bound_by": k1_bound[1],
             "library_ms": None,
+            "ms_served_rows": served["ms"],
+            "bound_ms_served_rows": served["bound"][0],
+            "max_abs_err_served_rows": served["max_abs_err"],
         },
         {
             "name": "tdmfv_n_est_blocked",
@@ -938,6 +1055,8 @@ def main(argv=None) -> int:
             "bound_by": k2_bound[1],
             "library_ms": None,
             "ms_by_block_b": blocked,
+            "ms_served_rows": served["blocked_ms"][max(BLOCKS)],
+            "ms_served_rows_by_block_b": served["blocked_ms"],
         },
         {
             "name": "int8_conv3d",

@@ -1,11 +1,14 @@
 """ctypes wrappers of the MuPS CUDA kernels (`csrc/mups_kernel.cu`).
 
 `tdmfv_n_est_cuda` is the counterpart of
-`nestinet_tpu/ops/pallas/mups_kernel.py::_forward` (one block per row);
+`nestinet_tpu/ops/pallas/mups_kernel.py::_forward` (one row per ticket);
 `tdmfv_n_est_blocked_cuda` the counterpart of
-`scripts/mups_kernel_exp.py::forward_blocked` (`block_b` rows per block).
-Each wrapper checks what it is given, allocates the output with
-`torch.empty`, launches on the current stream and raises on a launch error.
+`scripts/mups_kernel_exp.py::forward_blocked` (`block_b` rows per ticket).
+Both kernels run a persistent grid whose blocks take tickets from a counter
+of two int32s; the kernel leaves it at 0, so one zeroed counter per (card,
+stream) serves every launch on that stream.  Each wrapper checks what it is
+given, allocates the output with `torch.empty`, launches on the current
+stream and raises on a launch error.
 They never fall back: a tensor that is not a contiguous float32 CUDA tensor
 raises.  `KERNEL.launches["tdmfv_n_est"]` and
 `KERNEL.launches["tdmfv_n_est_blocked"]` count their launches apart.
@@ -23,11 +26,22 @@ N_CHANNELS = 20
 
 KERNEL = CudaKernel("mups_kernel", ("tdmfv_n_est", "tdmfv_n_est_blocked"))
 
+_TICKETS: dict = {}  # (device, stream) -> the zeroed ticket counter
+
+
+def _tickets(dev: torch.device, stream) -> torch.Tensor:
+    """The ticket counter of launches on `stream`: zeroed once, when it is
+    made, and left at 0 by every launch that ran to its end."""
+    key = (dev.index, stream.cuda_stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return _TICKETS[key]
+
 
 def _bind(lib, name: str, n_ints: int):
     fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -61,10 +75,11 @@ def _launch(kernel: str, points, w, mu, sigma, n_eff, *ints) -> torch.Tensor:
         return out
     fn = _bind(KERNEL.lib(), kernel + "_launch", 3 + len(ints))
     with torch.cuda.device(dev):  # the launch goes to the tensors' card
+        stream = torch.cuda.current_stream(dev)
         code = fn(
             points.data_ptr(), n_eff.data_ptr(), w.data_ptr(), mu.data_ptr(),
-            sigma.data_ptr(), out.data_ptr(), R, N, K, *ints,
-            torch.cuda.current_stream(dev).cuda_stream,
+            sigma.data_ptr(), out.data_ptr(), _tickets(dev, stream).data_ptr(),
+            R, N, K, *ints, stream.cuda_stream,
         )
     KERNEL.check(code)
     KERNEL.launches[kernel] += 1
@@ -79,7 +94,7 @@ def tdmfv_n_est_cuda(
     n_eff: torch.Tensor,
 ) -> torch.Tensor:
     """[R, N, 3] f32 points, [R] i32 n_eff -> [R, 20, K] f32, on the card;
-    one block per row."""
+    one row per ticket."""
     _checked(points, w, mu, sigma, n_eff)
     return _launch("tdmfv_n_est", points, w, mu, sigma, n_eff)
 
@@ -92,7 +107,7 @@ def tdmfv_n_est_blocked_cuda(
     n_eff: torch.Tensor,
     block_b: int,
 ) -> torch.Tensor:
-    """The same statistics with `block_b` consecutive rows per block; R must
+    """The same statistics with `block_b` consecutive rows per ticket; R must
     be a multiple of `block_b`.  Bit-identical to `tdmfv_n_est_cuda`."""
     R, _, _ = _checked(points, w, mu, sigma, n_eff)
     if block_b <= 0 or R % block_b != 0:

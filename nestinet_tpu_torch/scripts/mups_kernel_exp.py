@@ -1,4 +1,4 @@
-"""Experiment: the blocked MuPS kernel (`block_b` rows per block) against
+"""Experiment: the blocked MuPS kernel (`block_b` rows per ticket) against
 its plain PyTorch version, on the card.
 
 Counterpart of `scripts/mups_kernel_exp.py`: the same flags and the same
@@ -23,7 +23,7 @@ from ..ops.mups import tdmfv_n_est_reference
 
 
 def forward_blocked(points, w, mu, sigma, n_eff, block_b: int) -> torch.Tensor:
-    """[R, N, 3] points, [R] n_eff -> [R, 20, K], `block_b` rows per block.
+    """[R, N, 3] points, [R] n_eff -> [R, 20, K], `block_b` rows per ticket.
 
     A CUDA tensor runs the blocked kernel; a CPU tensor the plain version.
     R must be a multiple of `block_b`, on either device.
