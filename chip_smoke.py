@@ -68,11 +68,29 @@ and prints no result):
  12. times: both MuPS kernels and their plain version (CUDA events, median
      after warm-up) on random and on served rows, each beside its bound,
      extraction per batch, the forward, and each serving path's patches/s
-     and peak memory.
+     and peak memory;
+ 13. training, at full width: (a) one float32 train step on the card
+     against the same step on the CPU, from the same weights and one batch
+     of 16 patches at PCPNet's density with random normals as targets: the
+     loss at rtol 1e-5, the BatchNorm state at atol 1e-5, the gradients
+     within 4x of what moving the CPU's input points by 1e-7 relative does
+     to them (measured in the run); the step launches the MuPS kernel once
+     and never calls the plain MuPS backward, the eval step launches it
+     once; (b) the train step at B = 256 (or the largest batch that fits)
+     in float32 and bfloat16 on one fixed batch: ms per step (CUDA events,
+     the median of steps 3-10), patches/s, peak memory, MuPS launches per
+     step and the MuPS kernel's share; the loss after the last adam step
+     (10 in float32, 20 in bfloat16) below the first step's; (c)
+     `python -m nestinet_tpu_torch.cli.train` on the synthetic training and
+     validation sets (18 and 6 shapes, 64 patches each, B = 256: 4 steps an
+     epoch) for 2 epochs, then `--max_epoch 3 --resume 1` in place, then
+     `python -m nestinet_tpu_torch.cli.test --extraction=device` serves the
+     run's best checkpoint on two test shapes: finite normals and RMS.
 
-The script ran in about 300 s on an H100 (a quarter of its 1,200 s
-limit), so the only cut of depth is host-dense's, which serves two of the
-six shapes.
+Phases 1-12 ran in about 300 s on an H100 (a quarter of its 1,200 s
+limit), so the only cuts of depth are host-dense's, which serves two of the
+six shapes, and phase 13's: a few steps an epoch, and cli.test on two
+shapes.
 
 Each serving path and the kernels' entry point run with the launch counts
 set to 0 just before and read just after; a kernel of the path that was
@@ -109,6 +127,21 @@ BF16_ROUTED_RTOL = 0.05  # bfloat16 routed vs dense normals, of max |normal|
 DTYPE_PATHS = (("bf16", "bfloat16", False), ("bf16+fold", "bfloat16", True),
                ("int8", "int8", False), ("int8+fold", "int8", True))
 EXTRACT_ATOL = 1e-6
+# phase 13, training
+TRAIN_CHECK_BATCH = 16  # the card's step against the CPU's
+TRAIN_BATCHES = (256, 128, 64)  # the step's batch, or the largest that fits
+TRAIN_STEPS = {"float32": 10, "bfloat16": 20}  # timed: the median of steps 3-10
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_BN_ATOL = 1e-5
+# The step's gradients move by up to 5e-3 (relative L2 of a tensor) when the
+# CPU's own input points move by 1e-7 relative, about one float32 ulp
+# (`scripts/train_step_precision.py`): the card's gradients are held to 4x
+# what that perturbation does in the same run, tensor by tensor at the
+# worst tensor's spread and over all gradients at the whole spread.
+TRAIN_PERTURB_REL = 1e-7
+TRAIN_GRAD_SPREADS = 4.0
+TRAIN_BIAS_RTOL = 1e-4  # a BN-fed bias's error against its kernel's gradient
+TRAIN_PATCHES_PER_SHAPE = 64  # 18 training shapes: 4 steps of 256 an epoch
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -719,6 +752,295 @@ def angles_deg(a, b):
     return torch.rad2deg(torch.arccos(cos.clamp(-1.0, 1.0)))
 
 
+def bn_fed_biases(model) -> dict:
+    """{bias name: its layer's kernel name} for the conv and linear biases
+    that feed a train-mode BatchNorm, whose exact gradient is 0."""
+    from nestinet_tpu_torch.ops.nn import ConvBN3D, DenseBN
+
+    out = {}
+    for name, m in model.named_modules():
+        if isinstance(m, ConvBN3D):
+            out[f"{name}.conv.b"] = f"{name}.conv.w"
+        elif isinstance(m, DenseBN) and m.bn is not None:
+            out[f"{name}.linear.b"] = f"{name}.linear.w"
+    return out
+
+
+def gradient_errors(grads: dict, ref: dict, noisy: dict) -> dict:
+    """Relative L2 errors of `grads` against `ref` (float64 on the CPU,
+    by parameter name): each tensor's ("by_tensor", the worst in "worst"),
+    all of them at once ("all"), and the BN-fed biases' against their
+    kernel's gradient norm ("bias")."""
+    import torch
+
+    by_tensor, diff2, ref2, bias = {}, 0.0, 0.0, 0.0
+    for name, r in ref.items():
+        d = torch.linalg.norm(grads[name] - r).item()
+        if name in noisy:
+            bias = max(bias, d / torch.linalg.norm(ref[noisy[name]]).item())
+            continue
+        rn = torch.linalg.norm(r).item()
+        by_tensor[name] = d / rn if rn > 0 else d
+        diff2, ref2 = diff2 + d * d, ref2 + rn * rn
+    worst = max(by_tensor, key=by_tensor.get)
+    return {"by_tensor": by_tensor, "worst": (worst, by_tensor[worst]),
+            "all": (diff2 / ref2) ** 0.5, "bias": bias}
+
+
+def step_gradients(model, cfg, batch):
+    """One train step at step 0; (loss, {name: gradient as float64 on the
+    CPU})."""
+    import torch
+
+    from nestinet_tpu_torch.train.train_step import make_optimizer, make_train_step
+
+    loss = make_train_step(model, cfg, make_optimizer(model, cfg))(batch, 0)
+    grads = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()}
+    return loss.item(), grads
+
+
+def perturbed(batch: dict, rel: float, seed: int) -> dict:
+    """The batch with its points scaled by 1 + rel U(-1, 1), per coordinate."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    pts = batch["points"]
+    u = (2 * torch.rand(pts.shape, generator=g) - 1).to(pts.device)
+    return dict(batch, points=pts * (1 + rel * u))
+
+
+def training_batch(dev, batch: int, seed: int):
+    """One batch of `batch` patches at PCPNet's density (`served_rows`:
+    extracted on the card from a 100,000-point sphere) with random unit
+    normals as targets, on `dev`."""
+    import numpy as np
+    import torch
+
+    from nestinet_tpu_torch.scripts.mups_kernel_parts import served_rows
+
+    with torch.no_grad():
+        pts, ne = served_rows(dev, seed, batch=batch)
+    normals = np.random.RandomState(seed).normal(size=(batch, 3)).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    return {"points": pts.reshape(batch, -1, 3).clone(), "n_eff": ne.reshape(batch, -1).clone(),
+            "normals": torch.from_numpy(normals).to(dev)}
+
+
+def check_train_step_against_cpu(dev, cfg, gmm, kernel):
+    """Phase 13a: one full-width float32 train step on the card against the
+    same step on the CPU, from the same weights and batch: the loss at rtol
+    1e-5 and the BatchNorm state at atol 1e-5.  The gradients are held to
+    float32's own sensitivity of this step, measured in the same run: the
+    CPU step again on points moved by 1e-7 relative gives each tensor's
+    spread; the card's relative L2 error may be 4x the worst tensor's
+    spread on each tensor and 4x the whole gradient's spread over all of
+    them; a bias that feeds a train-mode BatchNorm (its gradient is
+    rounding noise) stays within 1e-4 of its kernel's gradient norm.  The
+    card's step launches the MuPS kernel once and never calls its
+    backward; the eval step launches it once."""
+    import copy
+
+    import torch
+
+    from nestinet_tpu_torch.models import build_model
+    from nestinet_tpu_torch.ops import mups as mups_ops
+    from nestinet_tpu_torch.train.train_step import make_eval_step
+
+    cpu_model = build_model(cfg, gmm, torch.Generator().manual_seed(SEED))
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    batch = training_batch(dev, TRAIN_CHECK_BATCH, SEED)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    noisy = bn_fed_biases(cpu_model)
+    kernel.reset_launches()
+    mups_ops.BACKWARD_CALLS["plain"] = 0
+    card_loss, card_grads = step_gradients(card_model, cfg, batch)
+    launches = dict(kernel.launches)
+    backward_calls = mups_ops.BACKWARD_CALLS["plain"]
+    kernel.reset_launches()
+    eval_loss, eval_cos = make_eval_step(card_model)(batch)
+    torch.cuda.synchronize()
+    eval_launches = kernel.launches["tdmfv_n_est"]
+    if not (torch.isfinite(eval_loss) and torch.isfinite(eval_cos).all()):
+        fail("the eval step's loss or cosines are not finite")
+    t0 = time.perf_counter()
+    fresh = copy.deepcopy(cpu_model)  # the perturbed step starts from the same state
+    cpu_loss, cpu_grads = step_gradients(cpu_model, cfg, cpu_batch)
+    cpu_s = time.perf_counter() - t0
+    _, spread_grads = step_gradients(fresh, cfg, perturbed(cpu_batch, TRAIN_PERTURB_REL, SEED))
+    card = gradient_errors(card_grads, cpu_grads, noisy)
+    spread = gradient_errors(spread_grads, cpu_grads, noisy)
+    tensor_bar = max(TRAIN_GRAD_SPREADS * spread["worst"][1], 1e-4)
+    all_bar = max(TRAIN_GRAD_SPREADS * spread["all"], 1e-4)
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    cpu_state = dict(cpu_model.named_buffers())
+    bn_err = max((b.cpu() - cpu_state[n]).abs().max().item()
+                 for n, b in card_model.named_buffers() if n.rsplit(".", 1)[-1] in
+                 ("ema_mean", "ema_var", "bias"))
+    over = sum(e > 1e-4 for e in card["by_tensor"].values())
+    print(f"train step, card vs CPU [full width, f32, B={TRAIN_CHECK_BATCH}]: loss "
+          f"{card_loss:.6f} vs {cpu_loss:.6f} (rel err {loss_err:.2e}, rtol {TRAIN_LOSS_RTOL}); "
+          f"BN state max abs err {bn_err:.2e} (atol {TRAIN_BN_ATOL}); gradients, relative L2: "
+          f"worst tensor {card['worst'][1]:.2e} ({card['worst'][0]}), all {card['all']:.2e}, "
+          f"{over} of {len(card['by_tensor'])} tensors over 1e-4; the CPU's own spread at "
+          f"points moved by {TRAIN_PERTURB_REL:g}: worst tensor {spread['worst'][1]:.2e} "
+          f"({spread['worst'][0]}), all {spread['all']:.2e}; bars {tensor_bar:.2e} and "
+          f"{all_bar:.2e}; BN-fed biases {card['bias']:.2e} of their kernel's (bar "
+          f"{TRAIN_BIAS_RTOL}); MuPS launches {launches}, plain backward calls "
+          f"{backward_calls}, eval step MuPS launches {eval_launches}; the CPU step took "
+          f"{cpu_s:.1f} s", flush=True)
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        fail(f"train step loss differs between the card and the CPU: {loss_err}")
+    if not (card["worst"][1] <= tensor_bar and card["all"] <= all_bar
+            and card["bias"] <= TRAIN_BIAS_RTOL):
+        fail(f"train step gradients differ between the card and the CPU: {card['worst']}, "
+             f"all {card['all']}, biases {card['bias']}")
+    if not bn_err <= TRAIN_BN_ATOL:
+        fail(f"BatchNorm state differs between the card and the CPU: {bn_err}")
+    if launches["tdmfv_n_est"] != 1 or backward_calls != 0 or eval_launches != 1:
+        fail(f"train step: {launches} MuPS launches, {backward_calls} backward calls; eval "
+             f"step: {eval_launches} launches")
+    return {"mups_launches_train_step": launches["tdmfv_n_est"],
+            "mups_launches_eval_step": eval_launches, "plain_backward_calls": backward_calls,
+            "loss_rel_err": loss_err, "bn_state_max_abs_err": bn_err,
+            "grad_worst": card["worst"], "grad_all": card["all"], "grad_over_1e-4": over,
+            "spread_worst": spread["worst"], "spread_all": spread["all"],
+            "bn_fed_bias_grad_err": card["bias"], "cpu_step_s": cpu_s}
+
+
+def time_train_steps(dev, cfg, gmm, dtype, kernel, card):
+    """Phase 13b: the full-width train step at B = 256 (or the largest
+    batch that fits) on one fixed batch: ms per step (CUDA events, the
+    median of steps 3-10), patches/s, peak memory, MuPS launches per step,
+    the MuPS kernel's share of the step; the loss after the last adam step
+    must be below the first step's."""
+    import dataclasses
+
+    import torch
+
+    from nestinet_tpu_torch.core.device import cuda_median_ms
+    from nestinet_tpu_torch.models import build_model
+    from nestinet_tpu_torch.train.train_step import make_optimizer, make_train_step
+
+    steps = TRAIN_STEPS[dtype]
+    for batch_size in TRAIN_BATCHES:
+        c = dataclasses.replace(cfg, compute_dtype=dtype, batch_size=batch_size)
+        model = build_model(c, gmm, torch.Generator().manual_seed(SEED)).to(dev)
+        step_fn = make_train_step(model, c, make_optimizer(model, c))
+        batch = training_batch(dev, batch_size, SEED + 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernel.reset_launches()
+        try:
+            times, losses = [], []
+            for i in range(steps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                losses.append(step_fn(batch, i))
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+        except torch.cuda.OutOfMemoryError:
+            print(f"train step {dtype}: B={batch_size} does not fit", flush=True)
+            del model, step_fn, batch
+            torch.cuda.empty_cache()
+            continue
+        break
+    else:
+        fail(f"train step {dtype}: no batch of {TRAIN_BATCHES} fits")
+    launches = kernel.launches["tdmfv_n_est"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = sorted(times[2:10])[len(times[2:10]) // 2]
+    with torch.no_grad():
+        mups_ms = cuda_median_ms(lambda: model.mups_grid(batch["points"], batch["n_eff"]),
+                                 warmup=2, iters=10)
+    losses = [x.item() for x in losses]
+    out = {"batch": batch_size, "ms": ms, "patches_per_s": batch_size / ms * 1e3,
+           "peak_memory_gb": peak_gb, "mups_launches_per_step": launches / steps,
+           "mups_ms": mups_ms, "mups_share": mups_ms / ms, "first_loss": losses[0],
+           "last_loss": losses[-1], "steps": steps, "step_ms": times}
+    print(f"train step {dtype} [full width, B={batch_size}]: {ms:.1f} ms (median of steps "
+          f"3-10), {out['patches_per_s']:.1f} patches/s, peak {peak_gb:.2f} GB, MuPS "
+          f"{launches / steps:g} launches per step, {mups_ms:.3f} ms "
+          f"({100 * out['mups_share']:.2f}% of the step); loss {losses[0]:.4f} at step 1, "
+          f"{losses[-1]:.4f} at step {steps} [{card}]", flush=True)
+    if launches != steps:
+        fail(f"train step {dtype}: {launches} MuPS launches in {steps} steps")
+    if not losses[-1] < losses[0]:
+        fail(f"train step {dtype}: the loss did not fall in {steps} steps: {losses}")
+    del model, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_cli(data, run, *extra):
+    """Phase 13c: `python -m nestinet_tpu_torch.cli.train` at full width on
+    the synthetic training and validation sets, B = 256."""
+    args = ["--data_path", data, "--log_dir", run, "--trainset", "trainingset_whitenoise.txt",
+            "--testset", "validationset.txt", "--patch_radius", "0.01", "0.03", "0.05",
+            "--num_point", "512", "--num_gaussians", "8", "--batch_size", "256",
+            "--patches_per_shape", str(TRAIN_PATCHES_PER_SHAPE), "--seed", str(SEED),
+            "--insert_rotation_augmentation", "1", *extra]
+    return run_module("nestinet_tpu_torch.cli.train", *args)
+
+
+def run_module(module, *args) -> float:
+    """Run `python -m module args` from the checkout's root; raise on a
+    non-zero exit, print its output's last lines; returns its seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], capture_output=True,
+                          text=True, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          timeout=600)
+    secs = time.perf_counter() - t0
+    for line in proc.stdout.strip().splitlines()[-12:]:
+        print(f"  {module}: {line}", flush=True)
+    if proc.returncode != 0:
+        fail(f"{module} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    return secs
+
+
+def check_trained_run(data, run):
+    """Phase 13c: the run dir after 2 epochs and a resume to 3: metrics of
+    3 train and 3 eval epochs, the periodic checkpoint at epoch 2, a best
+    checkpoint; then `cli.test --extraction=device` serves it from the best
+    checkpoint: finite normals and RMS."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from nestinet_tpu_torch.core import checkpoint
+
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        metrics = [_json.loads(line) for line in f]
+    kinds = [m["kind"] for m in metrics]
+    with open(os.path.join(run, "log_train.txt")) as f:
+        log = f.read()
+    periodic = checkpoint.load(run, torch.device("cpu"))
+    best = checkpoint.load(run, torch.device("cpu"), best=True)
+    print(f"trained run: metrics {kinds}, eval RMS "
+          f"{[round(m['rms_deg'], 3) for m in metrics if m['kind'] == 'eval']} deg, periodic "
+          f"checkpoint epoch {periodic['epoch']} step {periodic['step']}, best epoch "
+          f"{best['epoch']}", flush=True)
+    if kinds != ["train", "eval"] * 3 or periodic["epoch"] != 2:
+        fail(f"the trained run holds {kinds}, periodic epoch {periodic['epoch']}")
+    if "resumed from epoch 1" not in log or os.path.exists(os.path.join(run, "1")):
+        fail("the second cli.train call did not resume the run in place")
+    if not all(np.isfinite(m["loss"]) for m in metrics):
+        fail("non-finite loss in metrics.jsonl")
+    secs = run_module("nestinet_tpu_torch.cli.test", "--results_path", run,
+                      "--dataset_path", data, "--testset", "testset_two.txt",
+                      "--dataset_name", "trained", "--extraction", "device",
+                      "--batch_size", str(DEVICE_BATCH))
+    summary = check_outputs(data, os.path.join(run, "trained_results"), "testset_two",
+                            N_EXPERTS)
+    print(f"cli.test of the trained run (best checkpoint, epoch {best['epoch']}, device "
+          f"extraction, bf16, 10,000 patches): RMS {summary['rms']:.4f} deg, PGP10 "
+          f"{summary['pgp10']:.4f}, {secs:.1f} s", flush=True)
+    return {"metrics": metrics, "best_epoch": best["epoch"], "rms": summary["rms"],
+            "test_seconds": secs}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="GPU smoke test of the PyTorch port")
     parser.add_argument("--record", default=None,
@@ -804,7 +1126,6 @@ def main(argv=None) -> int:
     from nestinet_tpu_torch.infer.device_pipeline import extract_batch, predict_shapes_device
     from nestinet_tpu_torch.infer.predict import load_run, pad_batch, predict_shapes
     from nestinet_tpu_torch.models import build_model
-    from nestinet_tpu_torch.models.base import init_params
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         data = os.path.join(tmp, "data")
@@ -832,9 +1153,8 @@ def main(argv=None) -> int:
         cfg.save(rd.config_path)
         run_gmm = get_3d_grid_gmm([8, 8, 8], variance=cfg.gmm_variance)
         run_gmm.save(rd.gmm_path)
-        model = build_model(cfg, run_gmm)
         wgen = torch.Generator().manual_seed(SEED)
-        init_params(model, wgen)
+        model = build_model(cfg, run_gmm, wgen)
         randomize_bn(model, wgen)
         spread_manager_logits(model.to(dev), grids, queries, radii, bseed, caps)
         checkpoint.save(rd.path, model.cpu().state_dict())
@@ -1004,7 +1324,27 @@ def main(argv=None) -> int:
             print(f"time: {label} {st['patches_per_sec']:.1f} patches/s, peak "
                   f"{st['peak_memory_gb']:.2f} GB [{card}]", flush=True)
 
+        # ---- 13. training: the step against the CPU, timed, the trainer ----
+        del model
+        torch.cuda.empty_cache()
+        t13 = time.perf_counter()
+        train_cfg = Config(model="experts_n_est", patch_radius=cfg.patch_radius, num_point=512,
+                           num_gaussians=8, n_experts=N_EXPERTS, seed=SEED)
+        vs_cpu = check_train_step_against_cpu(dev, train_cfg, run_gmm, kernel)
+        train_times = {d: time_train_steps(dev, train_cfg, run_gmm, d, kernel, card)
+                       for d in ("float32", "bfloat16")}
+        train_run = os.path.join(tmp, "train_run")
+        train_s = train_cli(data, train_run, "--max_epoch", "2")
+        resume_s = train_cli(data, train_run, "--max_epoch", "3", "--resume", "1")
+        trained = check_trained_run(data, train_run)
+        print(f"phase 13: cli.train {train_s:.1f} s (2 epochs), resumed {resume_s:.1f} s (1 "
+              f"epoch); the phase took {time.perf_counter() - t13:.1f} s", flush=True)
+        if "jax" in sys.modules:
+            fail("jax was imported")
+
     record.update({
+        "train_step_vs_cpu": vs_cpu, "train_step": train_times, "trained_run": trained,
+        "cli_train_seconds": [train_s, resume_s],
         "kernel_max_abs_err": k1_err, "blocked_max_abs_err": k2_err,
         "kernel_max_abs_err_k1000": wide_err,
         "blocked_max_diff_from_kernel": k2_diff, "kernel_ms": k1_ms, "plain_ms": plain_ms,
@@ -1032,6 +1372,8 @@ def main(argv=None) -> int:
             "source": "nestinet_tpu_torch/csrc/mups_kernel.cu",
             "replaces": "nestinet_tpu/ops/pallas/mups_kernel.py:43",
             "launches": dev_sparse["launches"]["tdmfv_n_est"],
+            "launches_per_train_step": vs_cpu["mups_launches_train_step"],
+            "launches_per_eval_step": vs_cpu["mups_launches_eval_step"],
             "max_abs_err": k1_err,
             "ms": k1_ms[R],
             "plain_ms": plain_ms[R],

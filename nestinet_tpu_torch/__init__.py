@@ -9,25 +9,30 @@ the C++ sampler and text writer in `csrc/`) are its own copies.
 
 Layout (each module mirrors its counterpart in `nestinet_tpu/`):
     core/     device resolution, f32 numerics switch, CUDA-event timing,
-              torch checkpoints, Config, RunDir, the native text writer
-    data/     PCPNet shape IO, the kd-tree patch dataset and loader, the
-              native patch sampler, the synthetic benchmark generator
+              torch checkpoints (periodic and best slots), Config, RunDir,
+              the step timer, the native text writer
+    data/     PCPNet shape IO, the kd-tree patch dataset, its samplers and
+              loader, the native patch sampler, the rotation augmentation,
+              the synthetic benchmark generator
     eval/     RMS / PGP scoring of `.normals` files
     ops/      grid GMM, MuPS statistics (plain + CUDA kernels), NN blocks,
               the grid-hash ball query
     csrc/     CUDA C++ kernel sources, built with nvcc at first use, and the
               host C++ sources, built with g++ at first use
-    models/   backbone specs, the experts_n_est mixture of experts
+    models/   backbone specs, the experts_n_est mixture of experts, losses
+    train/    lr and BN-decay schedules, the train and eval steps, the
+              trainer (epochs, validation RMS, checkpoints, resume)
     infer/    streaming whole-shape inference (host or device extraction,
               routed or dense MoE) + .normals writer
-    cli/      the inference CLI
+    cli/      the training and inference CLIs
     scripts/  the blocked-MuPS-kernel experiment
     convert   haiku <-> torch weight conversion
 
-Ported so far: serving a trained `experts_n_est` run dir in float32,
-bfloat16 or int8 (optionally with BatchNorm folded), with argmax-only
-(sparse) or dense mixture-of-experts inference and host (kd-tree) or
-device (grid-hash ball query) patch extraction.
+Ported so far: training `experts_n_est` on one GPU in float32 or
+bfloat16 (the MuPS CUDA kernel in every train and eval step), and serving
+its run dir in float32, bfloat16 or int8 (optionally with BatchNorm
+folded), with argmax-only (sparse) or dense mixture-of-experts inference
+and host (kd-tree) or device (grid-hash ball query) patch extraction.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,9 @@
 """Inference CLI of the PyTorch port (counterpart of
 `nestinet_tpu/cli/test.py`).
 
-Reloads a run directory's config, GMM and torch checkpoint
-(`<run>/ckpt_torch/model.pt`) and writes
+Reloads a run directory's config, GMM and torch checkpoint (the best one,
+`<run>/ckpt_torch_best/model.pt`, when the trainer wrote it, else
+`<run>/ckpt_torch/model.pt`) and writes
 `<run>/<dataset>_results/<shape>.normals` (plus `.experts` and
 `.experts_probs`) for every shape in the test list, on the GPU.
 

@@ -16,6 +16,13 @@ In the port the same leaves sit at `manager.backbone.incep0.conv1.conv.w`,
 OIDHW, linear weights [out, in].  The flatten before the first FC layer is
 in NDHWC order in both packages, so every FC weight converts by a plain
 transpose.
+
+The optimizer state converts by the same paths and transposes: optax's
+`ScaleByAdamState(count, mu, nu)` is torch.optim.Adam's `step`,
+`exp_avg` and `exp_avg_sq` per parameter, and optax.sgd's `TraceState`
+trace is SGD's `momentum_buffer`.  optax's states arrive as objects with
+those fields (the first element of the optimizer's state tuple) and leave
+as plain dicts.
 """
 
 from __future__ import annotations
@@ -130,3 +137,42 @@ def to_haiku(state_dict: dict, cfg) -> tuple[dict, dict]:
                 for path, leaves in first.items()
             }
     return params, state
+
+
+def optimizer_state_from_optax(opt_state, model, cfg) -> dict:
+    """optax state of `make_optimizer` (JAX `train_step.py:28-34`) -> the
+    `state` of the torch optimizer's state dict, keyed by the index of each
+    parameter in `model.parameters()`."""
+    inner = opt_state[0]
+    names = [n for n, _ in model.named_parameters()]
+
+    def by_name(tree):  # a tree shaped like the haiku params, without state
+        return from_haiku(tree, {top: {} for top in tree}, cfg)
+
+    if hasattr(inner, "mu"):
+        mu, nu = by_name(inner.mu), by_name(inner.nu)
+        step = float(np.asarray(inner.count))
+        return {i: {"step": torch.tensor(step), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+                for i, n in enumerate(names)}
+    if hasattr(inner, "trace"):
+        trace = by_name(inner.trace)
+        return {i: {"momentum_buffer": trace[n]} for i, n in enumerate(names)}
+    raise ValueError(f"unknown optax state: {type(inner).__name__}")
+
+
+def optimizer_state_to_optax(optimizer, model, cfg) -> dict:
+    """A torch Adam or SGD (momentum) state -> {"count", "mu", "nu"} or
+    {"trace"}, the moments as haiku-shaped trees of numpy arrays."""
+    names = [n for n, _ in model.named_parameters()]
+    state = optimizer.state_dict()["state"]
+
+    def tree(key):
+        return to_haiku({n: state[i][key] for i, n in enumerate(names)}, cfg)[0]
+
+    first = state[0]
+    if "exp_avg" in first:
+        return {"count": int(first["step"].item()), "mu": tree("exp_avg"),
+                "nu": tree("exp_avg_sq")}
+    if "momentum_buffer" in first:
+        return {"trace": tree("momentum_buffer")}
+    raise ValueError(f"unknown torch optimizer state: {sorted(first)}")

@@ -10,8 +10,11 @@ reference's contract, `train_n_est_w_experts.py:97-125, 354`):
         description.txt   free-form run description
         config.json       full Config (replaces the py2 parameters.p pickle)
         gmm.json          the grid GMM (replaces gmm.p)
-        ckpt/             checkpoints (params, state, opt_state, step)
+        ckpt/             the JAX package's checkpoints
+        ckpt_torch/       the port's periodic checkpoint (core/checkpoint.py)
+        ckpt_torch_best/  the port's best-validation checkpoint
         log_train.txt     textual training log
+        metrics.jsonl     one JSON line of scalars per train / eval epoch
         <dataset>_results/  inference outputs (.normals/.experts/...)
 
 Collision behavior matches the reference: an existing log_dir gets
@@ -20,8 +23,10 @@ auto-numbered subdirectories 1, 2, ...
 
 from __future__ import annotations
 
+import json
 import os
 import threading
+import time
 
 
 class RunDir:
@@ -30,7 +35,8 @@ class RunDir:
         os.makedirs(path, exist_ok=True)
         os.makedirs(self.ckpt_dir, exist_ok=True)
         self._log_file = None
-        # the lock serializes log()'s lazy file open and appends
+        self._metrics_file = None
+        # the lock serializes the lazy file opens and appends
         self._io_lock = threading.Lock()
 
     # ---- creation ----
@@ -95,7 +101,20 @@ class RunDir:
             self._log_file.flush()
         print(msg, flush=True)
 
+    def metrics(self, **scalars) -> None:
+        """Append one JSON line of scalars, with the time (thread-safe)."""
+        with self._io_lock:
+            if self._metrics_file is None:
+                self._metrics_file = open(
+                    os.path.join(self.path, "metrics.jsonl"), "a"
+                )
+            record = {"time": time.time()}
+            record.update(scalars)
+            self._metrics_file.write(json.dumps(record) + "\n")
+            self._metrics_file.flush()
+
     def close(self) -> None:
-        if self._log_file is not None:
-            self._log_file.close()
-        self._log_file = None
+        for f in (self._log_file, self._metrics_file):
+            if f is not None:
+                f.close()
+        self._log_file = self._metrics_file = None

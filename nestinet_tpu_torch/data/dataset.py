@@ -1,11 +1,10 @@
-"""kd-tree patch dataset and its sequential sampler (host side).
+"""kd-tree patch dataset and samplers (host side).
 
-The serving part of `nestinet_tpu/data/dataset.py`, copied so that the
-port imports nothing of the JAX package.  Serving reads every patch (or
-every `.pidx` patch) of every shape in order and no training targets, so
-the random samplers, epochs, density augmentation, point tuples and the
-normal/curvature/noise targets of the original are left out; for the
-cases kept, the batches are the original's to the bit.
+A copy of `nestinet_tpu/data/dataset.py`, so that the port imports nothing
+of the JAX package: the three sample orders, epochs, density augmentation
+(`point_count_std`) and the normal and noise targets.  Point tuples and
+the curvature targets are left out (no ported model reads them).  For
+every case kept, the batches are the original's to the bit.
 
 Capability parity with `utils/pcpnet_dataset.py`: multi-radius ball
 queries around query points, random subsampling to a fixed patch size,
@@ -23,7 +22,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .pcpnet import load_shape, read_shape_list
+from .pcpnet import load_shape, read_noise_levels, read_shape_list
 
 
 class LRUCache:
@@ -51,10 +50,12 @@ class LRUCache:
 class PatchDataset:
     """Multi-scale patch dataset over a PCPNet shape list.
 
-    Args mirror the serving part of the reference constructor
-    (`pcpnet_dataset.py:182-282`): root, shape_list_filename, patch_radius
-    (list of bbox-diagonal fractions), points_per_patch, seed, use_pca,
-    center ('point'|'mean'|'none'), cache_capacity, sparse_patches.
+    Args mirror the reference constructor (`pcpnet_dataset.py:182-282`):
+        root, shape_list_filename, patch_radius (list of bbox-diagonal
+        fractions), points_per_patch, features (subset of
+        {'normal','noise'}), seed, identical_epochs, use_pca, center
+        ('point'|'mean'|'none'), point_count_std, cache_capacity,
+        sparse_patches.
     """
 
     def __init__(
@@ -64,8 +65,11 @@ class PatchDataset:
         patch_radius,
         points_per_patch: int,
         seed: int,
+        features=(),
+        identical_epochs: bool = False,
         use_pca: bool = False,
         center: str = "point",
+        point_count_std: float = 0.0,
         cache_capacity: int = 100,
         sparse_patches: bool = False,
         use_native: bool = True,
@@ -74,20 +78,30 @@ class PatchDataset:
         self.shape_list_filename = shape_list_filename
         self.patch_radius = list(patch_radius)
         self.points_per_patch = int(points_per_patch)
+        self.features = tuple(features)
+        unknown = set(self.features) - {"normal", "noise"}
+        if unknown:
+            raise ValueError(f"features not ported: {sorted(unknown)}")
         self.seed = int(seed)
+        self.identical_epochs = identical_epochs
         self.use_pca = use_pca
         self.center = center
+        self.point_count_std = float(point_count_std)
         self.sparse_patches = sparse_patches
+        self.include_normals = "normal" in self.features
+        self.include_noise = "noise" in self.features
+        self.epoch = 0
 
-        # The C++ kd-tree engine covers the default hot path (no PCA);
-        # PCA falls back to scipy/numpy.
+        # The C++ kd-tree engine covers the default hot path (no PCA, no
+        # density augmentation); other paths fall back to scipy/numpy.
         if use_native:
             from . import native as _native
 
             use_native = _native.available()
-        self.use_native = use_native and not use_pca
+        self.use_native = use_native and not use_pca and self.point_count_std == 0.0
 
         self.shape_names = read_shape_list(root, shape_list_filename)
+        self.noise_levels = read_noise_levels(root, shape_list_filename, len(self.shape_names))
         self.shape_cache = LRUCache(cache_capacity, self._load_shape_by_index)
 
         # Per-shape patch counts and absolute radii (fraction x bbox diag).
@@ -110,7 +124,8 @@ class PatchDataset:
     # ---- shape management ----
     def _load_shape_by_index(self, shape_ind: int):
         shape = load_shape(
-            self.root, self.shape_names[shape_ind], with_pidx=self.sparse_patches
+            self.root, self.shape_names[shape_ind], with_normals=self.include_normals,
+            with_pidx=self.sparse_patches, noise_level=self.noise_levels[shape_ind],
         )
         if self.use_native:
             from .native import NativePatchSampler
@@ -126,10 +141,27 @@ class PatchDataset:
     def __len__(self) -> int:
         return int(self._offsets[-1])
 
+    def set_epoch(self, epoch: int) -> None:
+        """Advance the per-epoch subsample stream (no effect when
+        `identical_epochs` is set)."""
+        self.epoch = int(epoch)
+
     def _item_seed(self, index: int) -> int:
         """Per-item seed: thread-safe (each worker gets its own stream) and
-        reproducible; the original's stream at epoch 0."""
-        return (self.seed + index) % (2 ** 32)
+        reproducible.  `identical_epochs` pins the stream to the patch
+        index alone (parity: pcpnet_dataset.py:307-308); otherwise the
+        epoch is mixed in so subsampled subsets differ across epochs."""
+        if self.identical_epochs:
+            return (self.seed + index) % (2 ** 32)
+        return (self.seed + 1000003 * self.epoch + index) % (2 ** 32)
+
+    def _targets(self, item: dict, shape, center_ind: int, trans) -> dict:
+        if self.include_normals:
+            normal = shape.normals[center_ind].astype(np.float32)
+            item["normals"] = normal if trans is None else normal @ trans
+        if self.include_noise:
+            item["noise"] = np.float32(shape.noise_level)
+        return item
 
     # ---- the per-patch hot path ----
     def __getitem__(self, index: int) -> dict:
@@ -154,7 +186,8 @@ class PatchDataset:
                 seed=self._item_seed(index),
                 center=self.center,
             )
-            return {"points": pts[0], "n_eff": n_eff2[0], "trans": np.eye(3, dtype=np.float32)}
+            item = {"points": pts[0], "n_eff": n_eff2[0], "trans": np.eye(3, dtype=np.float32)}
+            return self._targets(item, shape, center_ind, None)
 
         patch_pts = np.zeros((n_scales * N, 3), dtype=np.float32)
         n_eff = np.zeros((n_scales,), dtype=np.int32)
@@ -168,6 +201,15 @@ class PatchDataset:
 
             count = min(N, len(inds))
             n_eff[s] = count
+
+            # Density augmentation (parity: :315-317).
+            if self.point_count_std > 0:
+                count = max(
+                    5,
+                    int(round(count * rng.uniform(1.0 - self.point_count_std * 2))),
+                )
+                count = min(count, len(inds))
+
             if count < len(inds):
                 inds = inds[rng.choice(len(inds), count, replace=False)]
 
@@ -199,7 +241,8 @@ class PatchDataset:
             patch_pts[valid] = rotated - cp_new
         else:
             trans = np.eye(3, dtype=np.float32)
-        return {"points": patch_pts, "n_eff": n_eff, "trans": trans}
+        item = {"points": patch_pts, "n_eff": n_eff, "trans": trans}
+        return self._targets(item, shape, center_ind, trans if self.use_pca else None)
 
 
 class SequentialPatchSampler:
@@ -211,6 +254,81 @@ class SequentialPatchSampler:
 
     def __iter__(self):
         return iter(range(self.total))
+
+    def __len__(self):
+        return self.total
+
+
+class RandomPatchSampler:
+    """Global no-replacement choice of sum(min(patches_per_shape, count))
+    patches ('random' sample order)."""
+
+    def __init__(self, dataset, patches_per_shape, seed=None, identical_epochs=False):
+        self.dataset = dataset
+        self.patches_per_shape = patches_per_shape
+        self.identical_epochs = identical_epochs
+        self.seed = int(seed) if seed is not None else np.random.randint(0, 2 ** 31 - 1)
+        self.rng = np.random.RandomState(self.seed)
+        self.total = sum(
+            min(patches_per_shape, c) for c in dataset.shape_patch_count
+        )
+
+    def __iter__(self):
+        if self.identical_epochs:
+            self.rng.seed(self.seed)
+        return iter(
+            self.rng.choice(
+                sum(self.dataset.shape_patch_count), size=self.total, replace=False
+            )
+        )
+
+    def __len__(self):
+        return self.total
+
+
+class SequentialShapeRandomPatchSampler:
+    """Random patches, but patches of one shape stay consecutive
+    ('random_shape_consecutive' sample order)."""
+
+    def __init__(
+        self,
+        dataset,
+        patches_per_shape,
+        seed=None,
+        sequential_shapes=False,
+        identical_epochs=False,
+    ):
+        self.dataset = dataset
+        self.patches_per_shape = patches_per_shape
+        self.sequential_shapes = sequential_shapes
+        self.identical_epochs = identical_epochs
+        self.seed = int(seed) if seed is not None else np.random.randint(0, 2 ** 31 - 1)
+        self.rng = np.random.RandomState(self.seed)
+        self.total = sum(
+            min(patches_per_shape, c) for c in dataset.shape_patch_count
+        )
+        self.shape_patch_inds = None
+
+    def __iter__(self):
+        if self.identical_epochs:
+            self.rng.seed(self.seed)
+        counts = self.dataset.shape_patch_count
+        offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        shape_inds = np.arange(len(counts))
+        if not self.sequential_shapes:
+            shape_inds = self.rng.permutation(shape_inds)
+        self.shape_patch_inds = [[] for _ in counts]
+        order = []
+        for si in shape_inds:
+            start, end = int(offsets[si]), int(offsets[si] + counts[si])
+            chosen = self.rng.choice(
+                np.arange(start, end),
+                size=min(self.patches_per_shape, end - start),
+                replace=False,
+            )
+            order.extend(chosen.tolist())
+            self.shape_patch_inds[si] = chosen - start
+        return iter(order)
 
     def __len__(self):
         return self.total

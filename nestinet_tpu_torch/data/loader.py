@@ -1,7 +1,9 @@
 """Batch assembly and host-side prefetch.
 
-The serving part of `nestinet_tpu/data/loader.py` (every patch in order,
-no targets), copied so that the port imports nothing of the JAX package.
+A copy of `nestinet_tpu/data/loader.py` (without point tuples and the
+curvature targets), so that the port imports nothing of the JAX package.
+Its defaults serve: the 'full' order and no targets; the trainer asks
+for the 'random' order, normals and `drop_last`.
 
 Replaces the reference's torch DataLoader usage (`utils/provider.py:319-429`)
 with a numpy-native iterator.  Two improvements over the reference's
@@ -20,7 +22,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from .dataset import PatchDataset, SequentialPatchSampler
+from .dataset import (
+    PatchDataset,
+    RandomPatchSampler,
+    SequentialPatchSampler,
+    SequentialShapeRandomPatchSampler,
+)
 
 
 def _stack_items(items: list[dict]) -> dict:
@@ -41,16 +48,21 @@ class BatchIterator:
         *,
         workers: int = 0,
         prefetch: int = 2,
+        drop_last: bool = False,
     ):
         self.dataset = dataset
         self.sampler = sampler
         self.batch_size = int(batch_size)
         self.workers = int(workers)
         self.prefetch = int(prefetch)
+        self.drop_last = drop_last
         self._pool = ThreadPoolExecutor(workers) if workers > 0 else None
 
     def __len__(self):
-        return (len(self.sampler) + self.batch_size - 1) // self.batch_size
+        n = len(self.sampler)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
 
     def _make_batch(self, indices) -> dict:
         if self._pool is not None:
@@ -66,7 +78,7 @@ class BatchIterator:
             if len(indices) == self.batch_size:
                 yield self._make_batch(indices)
                 indices = []
-        if indices:
+        if indices and not self.drop_last:
             yield self._make_batch(indices)
 
     def __iter__(self):
@@ -105,27 +117,65 @@ def get_data_loader(
     batch_size: int = 64,
     patch_radius=(0.05,),
     points_per_patch: int = 500,
+    outputs=(),
+    patch_point_count_std: float = 0.0,
     seed: int = 3627473,
+    identical_epochs: bool = False,
     use_pca: bool = False,
     patch_center: str = "point",
     cache_capacity: int = 100,
+    patches_per_shape: int = 1000,
+    patch_sample_order: str = "full",
     workers: int = 0,
     sparse_patches: bool = False,
+    drop_last: bool = False,
     use_native: bool = True,
 ) -> tuple[BatchIterator, PatchDataset]:
-    """The reference's loader factory (`provider.py:319-429`) in its
-    serving form: the 'full' sample order and no targets."""
+    """Mirror of the reference's loader factory (`provider.py:319-429`).
+
+    `outputs` uses the reference vocabulary: 'unoriented_normals' /
+    'oriented_normals' -> normal targets, 'noise'.
+    """
+    features = []
+    for o in outputs:
+        if o in ("unoriented_normals", "oriented_normals"):
+            if "normal" not in features:
+                features.append("normal")
+        elif o == "noise":
+            features.append(o)
+        else:
+            raise ValueError(f"unknown or unported output: {o}")
+
     dataset = PatchDataset(
         root=indir,
         shape_list_filename=dataset_name,
         patch_radius=list(patch_radius),
         points_per_patch=points_per_patch,
+        features=features,
+        point_count_std=patch_point_count_std,
         seed=seed,
+        identical_epochs=identical_epochs,
         use_pca=use_pca,
         center=patch_center,
         cache_capacity=cache_capacity,
         sparse_patches=sparse_patches,
         use_native=use_native,
     )
-    loader = BatchIterator(dataset, SequentialPatchSampler(dataset), batch_size, workers=workers)
+
+    if patch_sample_order == "random":
+        sampler = RandomPatchSampler(
+            dataset, patches_per_shape, seed=seed, identical_epochs=identical_epochs
+        )
+    elif patch_sample_order == "random_shape_consecutive":
+        sampler = SequentialShapeRandomPatchSampler(
+            dataset, patches_per_shape, seed=seed, identical_epochs=identical_epochs
+        )
+    elif patch_sample_order == "full":
+        sampler = SequentialPatchSampler(dataset)
+    else:
+        raise ValueError(f"unknown patch sample order: {patch_sample_order}")
+
+    loader = BatchIterator(
+        dataset, sampler, batch_size, workers=workers, drop_last=drop_last
+    )
     return loader, dataset

@@ -47,7 +47,9 @@ from .writer import ShapeScatterWriter
 def load_run(run_dir: str, device: torch.device, compute_dtype: str | None = None,
              fold_bn: bool | None = None):
     """(run dir, cfg, gmm, model) with the torch checkpoint loaded on
-    `device`, in eval mode.  The weights are loaded in float32, then the
+    `device`, in eval mode: the best-validation checkpoint when the trainer
+    wrote one, else the periodic one, as JAX's `restore_model` prefers
+    `ckpt_best/` (`:164-169`).  The weights are loaded in float32, then the
     BatchNorms folded (with `fold_bn`) and then the kernels quantized
     (int8), on the host, as JAX's `restore_model` does (`:207-222`)."""
     rd = RunDir.open(run_dir)
@@ -58,7 +60,7 @@ def load_run(run_dir: str, device: torch.device, compute_dtype: str | None = Non
         cfg = dataclasses.replace(cfg, fold_bn=bool(fold_bn))
     gmm = GridGMM.load(rd.gmm_path)
     model = build_model(cfg, gmm)
-    model.load_state_dict(checkpoint.load(rd.path, torch.device("cpu"))["state_dict"])
+    model.load_state_dict(checkpoint.load_for_serving(rd.path, torch.device("cpu"))["state_dict"])
     if model.fold_bn:
         fold_bn_(model)
     if model.quantize:

@@ -3,7 +3,10 @@
 Counterpart of `nestinet_tpu/models/base.py`: the GMM's w/mu/sigma live on
 the model's device as (non-persistent) buffers, `mups_grid` computes the
 statistics grid, and `FCHead` is the reference's FC head (`:120-144`):
-hidden `DenseBN` layers with BN and ReLU, a last layer without BN.
+hidden `DenseBN` layers with BN and ReLU, a last layer without BN.  Every
+forward takes `training` and the scheduled `bn_momentum`, as JAX's
+`apply(..., is_training, bn_momentum)`.  A model initializes its weights
+when it is built (`init_params`), from a `torch.Generator`.
 
 Serving modes, from the config as in JAX (`:42-53`): `compute_dtype` is
 bfloat16 for "bfloat16" and "int8" and float32 otherwise (parameters stay
@@ -71,9 +74,9 @@ class FCHead(nn.Module):
             f"fc{self.n_layers}", DenseBN(c, final_units, bn=False, relu=final_relu)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, training: bool = False, bn_momentum=None) -> torch.Tensor:
         for i in range(self.n_layers):
-            x = getattr(self, f"fc{i + 1}")(x)
+            x = getattr(self, f"fc{i + 1}")(x, training, bn_momentum)
         return x
 
 
@@ -88,23 +91,23 @@ class ConvNet(nn.Module):
             self.backbone.out_features, hidden, final_units, final_relu=final_relu
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.head(self.backbone(x))
+    def forward(self, x: torch.Tensor, training: bool = False, bn_momentum=None) -> torch.Tensor:
+        return self.head(self.backbone(x, training, bn_momentum), training, bn_momentum)
 
 
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
     """Xavier-uniform kernels and zero biases, as the reference initialises
     them (`nestinet_tpu/ops/nn.py:36`, VarianceScaling(1, fan_avg,
-    uniform)); BatchNorm parameters and state keep their defaults."""
+    uniform) on DHWIO fans): each kernel uniform in +-sqrt(6 / (fan_in +
+    fan_out)), drawn from `generator` in parameter order; BatchNorm
+    parameters and state keep their defaults."""
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "w":
             receptive = math.prod(p.shape[2:]) if p.dim() > 2 else 1
             fan_in, fan_out = p.shape[1] * receptive, p.shape[0] * receptive
             limit = math.sqrt(6.0 / (fan_in + fan_out))
-            draw = torch.empty(p.shape, dtype=p.dtype)
-            draw.uniform_(-limit, limit, generator=generator)
-            p.copy_(draw)
+            p.uniform_(-limit, limit, generator=generator)
         elif leaf == "b":
             p.zero_()

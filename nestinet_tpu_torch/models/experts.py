@@ -1,5 +1,4 @@
-"""Nesti-Net mixture-of-experts normal estimation (flagship model),
-inference.
+"""Nesti-Net mixture-of-experts normal estimation (flagship model).
 
 Counterpart of `nestinet_tpu/models/experts.py`:
   * MuPS: per-radius 3DmFV grids channel-concatenated;
@@ -13,6 +12,10 @@ Counterpart of `nestinet_tpu/models/experts.py`:
     jnp.argmax); routed inference (`infer/predict.py::route_sparse`) runs
     `manager_probs` and then each patch's argmax expert only, through the
     same two grid-level methods;
+  * training (`forward(..., training=True, bn_momentum=m)`) runs every
+    expert on every patch, because the loss needs all of them; `loss`
+    wraps `moe_loss` with the config's loss and expert loss types
+    (`:261-269`);
   * in every compute dtype the grid is cast once (`mups_grid`), the
     manager's softmax runs in float32 (`:92`) and the experts return
     float32 (`:112`).  Under int8 the per-tensor activation scales depend
@@ -33,7 +36,8 @@ import dataclasses
 import torch
 
 from . import backbones
-from .base import ConvNet, ModelBase
+from .base import ConvNet, ModelBase, init_params
+from .losses import moe_loss
 
 
 @dataclasses.dataclass
@@ -69,7 +73,9 @@ def expert_groups(cfg) -> list[ExpertGroup]:
 
 
 class ExpertsNormEst(ModelBase):
-    def __init__(self, cfg, gmm):
+    def __init__(self, cfg, gmm, generator: torch.Generator | None = None):
+        """Builds and initializes the model: weights from `generator`, or
+        from one seeded with `cfg.seed` (JAX inits from PRNGKey(cfg.seed))."""
         super().__init__(cfg, gmm)
         res = self.resolution
         if res not in (3, 8):
@@ -100,29 +106,46 @@ class ExpertsNormEst(ModelBase):
                 )
                 self.slices[i] = (start, start + g.channels)
         self.experts = torch.nn.ModuleList(experts)
+        if generator is None:
+            generator = torch.Generator().manual_seed(cfg.seed)
+        init_params(self, generator)
 
-    def manager_probs(self, grid: torch.Tensor) -> torch.Tensor:
+    def manager_probs(self, grid: torch.Tensor, training: bool = False,
+                      bn_momentum=None) -> torch.Tensor:
         """Manager CNN on a [B, r, r, r, C] grid -> float32 probabilities
         [E, B] (`apply_manager_on_grid`, JAX `experts.py:219-225`)."""
-        logits = self.manager(grid.permute(0, 4, 1, 2, 3))  # NCDHW
+        logits = self.manager(grid.permute(0, 4, 1, 2, 3), training, bn_momentum)  # NCDHW
         return torch.softmax(logits.to(torch.float32), dim=-1).t()
 
-    def expert_on_grid(self, i: int, grid: torch.Tensor) -> torch.Tensor:
+    def expert_on_grid(self, i: int, grid: torch.Tensor, training: bool = False,
+                       bn_momentum=None) -> torch.Tensor:
         """Expert `i` on its channel slice of a [b, r, r, r, C] grid ->
         normals [b, 3] (`apply_expert_member_on_grid`, JAX
         `experts.py:227-251`)."""
         lo, hi = self.slices[i]
-        return self.experts[i](grid[..., lo:hi].permute(0, 4, 1, 2, 3)).to(torch.float32)
+        x = grid[..., lo:hi].permute(0, 4, 1, 2, 3)
+        return self.experts[i](x, training, bn_momentum).to(torch.float32)
 
-    def forward_grid(self, grid: torch.Tensor) -> dict:
+    def forward_grid(self, grid: torch.Tensor, training: bool = False,
+                     bn_momentum=None) -> dict:
         """Dense MoE on a [B, r, r, r, C] grid -> {"n_pred": [E, B, 3],
         "experts_prob": [E, B]}: every expert on every patch."""
-        probs = self.manager_probs(grid)
-        n_pred = torch.stack([self.expert_on_grid(i, grid) for i in range(self.n_experts)])
+        probs = self.manager_probs(grid, training, bn_momentum)
+        n_pred = torch.stack([self.expert_on_grid(i, grid, training, bn_momentum)
+                              for i in range(self.n_experts)])
         return {"n_pred": n_pred, "experts_prob": probs}
 
-    def forward(self, points: torch.Tensor, n_eff: torch.Tensor) -> dict:
-        return self.forward_grid(self.mups_grid(points, n_eff))
+    def forward(self, points: torch.Tensor, n_eff: torch.Tensor, training: bool = False,
+                bn_momentum=None) -> dict:
+        """Dense MoE on a batch of patches; in training every BatchNorm
+        normalizes with batch moments and updates its EMA with
+        `bn_momentum` (JAX `experts.py:148-175`)."""
+        return self.forward_grid(self.mups_grid(points, n_eff), training, bn_momentum)
+
+    def loss(self, outputs: dict, normals: torch.Tensor):
+        """(scalar loss, cos_ang [E, B]) against the normals [B, 3]."""
+        return moe_loss(outputs["n_pred"], normals, outputs["experts_prob"],
+                        loss_type=self.cfg.loss_type, expert_type=self.cfg.expert_loss_type)
 
     @staticmethod
     def predict_normals(outputs: dict) -> torch.Tensor:

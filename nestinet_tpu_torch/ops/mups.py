@@ -14,6 +14,11 @@ row at index n_eff counts as real); masked rows enter every max/min as
 zeros; `n_eff == 0` divides by 1; the pdf coefficient is isotropic
 (sigma[:, 0]^3); the order is /eff, then signed sqrt, then L2 over K.
 The sums over points and Gaussians accumulate in float64 (see `_sum`).
+
+Training differentiates with respect to the parameters only: the points
+are constants of the loss, as in JAX's `value_and_grad(loss_fn)(params)`,
+so the backward never runs there.  `BACKWARD_CALLS["plain"]` counts the
+calls of the backward, so that a run can show it.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import torch
 from .kernels import mups_cuda
 
 N_CHANNELS = 20
+
+BACKWARD_CALLS = {"plain": 0}
 
 
 def _l2_normalize(x: torch.Tensor, dim: int, eps: float = 1e-12) -> torch.Tensor:
@@ -135,6 +142,7 @@ class _TdmfvNEst(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        BACKWARD_CALLS["plain"] += 1
         points, w, mu, sigma, n_eff = ctx.saved_tensors
         with torch.enable_grad():
             p = points.detach().requires_grad_(True)

@@ -1,7 +1,10 @@
-"""Neural-net building blocks for the 3D-Inception CNNs, eval path.
+"""Neural-net building blocks for the 3D-Inception CNNs.
 
-Counterpart of `nestinet_tpu/ops/nn.py`.  Tensors are NCDHW inside the
-blocks; parameters keep the haiku names (`w`, `b`, `gamma`, `beta`) and the
+Counterpart of `nestinet_tpu/ops/nn.py`.  Every block takes `training`
+and the scheduled BatchNorm `momentum` per call, as JAX's take
+`is_training` and `bn_momentum`: in training BatchNorm normalizes with the
+batch moments and folds them into its EMA state.  Tensors are NCDHW inside
+the blocks; parameters keep the haiku names (`w`, `b`, `gamma`, `beta`) and the
 BatchNorm state keeps its names (`ema_mean`, `ema_var`, `bias`) as buffers,
 so `convert.py` maps a haiku tree onto a state dict by path.  Conv kernels
 are stored OIDHW and linear weights [out, in].
@@ -72,10 +75,15 @@ def _pad_same(x: torch.Tensor, kernel: int, stride: int, value: float = 0.0):
 
 
 class BatchNormEMA(nn.Module):
-    """Eval-mode BatchNorm over a zero-debiased EMA of batch moments, with
-    JAX's casts: the debiased mean and variance in float32, then cast to
-    x.dtype; inv = gamma * rsqrt(var + 1e-3) and (x - mean) * inv + beta in
-    x.dtype."""
+    """BatchNorm over a zero-debiased EMA of batch moments (JAX
+    `ops/nn.py:67-115`).
+
+    Training: float32 moments of the batch over every axis but channels,
+    the population variance (`jnp.var`), and the EMA state updated with
+    the momentum passed per call, `ema = m*ema + (1-m)*moment`, `bias =
+    m*bias`, outside autograd.  Eval: the debiased EMA moments in float32,
+    cast to x.dtype.  Both then take JAX's casts: inv = gamma * rsqrt(var +
+    1e-3) and (x - mean) * inv + beta in x.dtype."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -85,10 +93,22 @@ class BatchNormEMA(nn.Module):
         self.register_buffer("ema_var", torch.zeros(channels))
         self.register_buffer("bias", torch.ones(()))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        denom = torch.clamp(1.0 - self.bias, min=1e-12)
-        mean = (self.ema_mean / denom).to(x.dtype)
-        var = (self.ema_var / denom).to(x.dtype)
+    def forward(self, x: torch.Tensor, training: bool = False, momentum=None) -> torch.Tensor:
+        if training:
+            xf = x.float()
+            axes = [0] + list(range(2, x.dim()))  # every axis but channels
+            mean = xf.mean(dim=axes)
+            var = xf.var(dim=axes, unbiased=False)
+            with torch.no_grad():
+                m = torch.as_tensor(momentum, dtype=torch.float32, device=x.device)
+                self.ema_mean.copy_(m * self.ema_mean + (1.0 - m) * mean)
+                self.ema_var.copy_(m * self.ema_var + (1.0 - m) * var)
+                self.bias.copy_(m * self.bias)
+            mean, var = mean.to(x.dtype), var.to(x.dtype)
+        else:
+            denom = torch.clamp(1.0 - self.bias, min=1e-12)
+            mean = (self.ema_mean / denom).to(x.dtype)
+            var = (self.ema_var / denom).to(x.dtype)
         # eps is rounded to x.dtype first, as JAX's weakly typed scalar is;
         # rsqrt runs in float32 and rounds once (torch's bfloat16 rsqrt
         # rounds twice on small tensors)
@@ -98,15 +118,22 @@ class BatchNormEMA(nn.Module):
         return (x - mean.view(shape)) * inv.view(shape) + self.beta.to(x.dtype).view(shape)
 
 
+def _batch_norm(bn: nn.Module, x: torch.Tensor, training: bool, momentum):
+    """A BatchNormEMA, or the nn.Identity that folding left in its place
+    (serving only, so never in training)."""
+    return bn(x, True, momentum) if training else bn(x)
+
+
 class _Conv3D(nn.Module):
-    """Stride-1 3D conv with bias, SAME padding; `w` is OIDHW.  After
+    """Stride-1 3D conv with bias, SAME padding; `w` is OIDHW, zero until
+    the model initializes it (`models/base.py::init_params`).  After
     `quantize_()` the float kernel is gone and `w_q` [cout, k^3, cin_p]
     int8 with `w_scale` [cout] take its place."""
 
     def __init__(self, cin: int, cout: int, kernel: int):
         super().__init__()
         self.kernel = kernel
-        self.w = nn.Parameter(torch.empty(cout, cin, kernel, kernel, kernel))
+        self.w = nn.Parameter(torch.zeros(cout, cin, kernel, kernel, kernel))
         self.b = nn.Parameter(torch.zeros(cout))
         self.register_buffer("w_q", None)
         self.register_buffer("w_scale", None)
@@ -138,7 +165,7 @@ class _Linear(nn.Module):
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.w = nn.Parameter(torch.empty(cout, cin))
+        self.w = nn.Parameter(torch.zeros(cout, cin))
         self.b = nn.Parameter(torch.zeros(cout))
         self.register_buffer("w_q", None)
         self.register_buffer("w_scale", None)
@@ -162,14 +189,14 @@ class ConvBN3D(nn.Module):
         self.conv = _Conv3D(cin, channels, kernel)
         self.bn = BatchNormEMA(channels)
 
-    def forward(self, x, relu: bool = True):
+    def forward(self, x, relu: bool = True, training: bool = False, momentum=None):
         x, x_amax = unwrap(x)
         if self.conv.quantized and isinstance(self.bn, nn.Identity):
             # BN folded: conv + ReLU + max|out| in one launch
             c = self.conv
             return ActQ(*quant.int8_conv3d_fused(x, c.w_q, c.w_scale, c.b, c.kernel, x_amax,
                                                  relu=relu, want_amax=True))
-        y = self.bn(self.conv(x, x_amax))
+        y = _batch_norm(self.bn, self.conv(x, x_amax), training, momentum)
         if relu:
             y = F.relu(y)
         if self.conv.quantized:
@@ -186,7 +213,7 @@ class DenseBN(nn.Module):
         self.bn = BatchNormEMA(units) if bn else None
         self.relu = relu
 
-    def forward(self, x) -> torch.Tensor:
+    def forward(self, x, training: bool = False, momentum=None) -> torch.Tensor:
         x, x_amax = unwrap(x)
         if self.linear.quantized and not isinstance(self.bn, BatchNormEMA):
             # no BN, or BN folded: the ReLU rides the int8 kernel's epilogue
@@ -194,7 +221,7 @@ class DenseBN(nn.Module):
             return quant.linear_int8(x, lin.w_q, lin.w_scale, lin.b, x_amax, relu=self.relu)
         x = self.linear(x, x_amax)
         if self.bn is not None:
-            x = self.bn(x)
+            x = _batch_norm(self.bn, x, training, momentum)
         return F.relu(x) if self.relu else x
 
 
@@ -206,30 +233,39 @@ def max_pool3d(x, kernel: int, stride: int):
     return out if x_amax is None else ActQ(out, x_amax)
 
 
-def avg_pool3d(x, kernel: int, stride: int):
+def avg_pool3d(x, kernel: int, stride: int, *, separable: bool = True):
     """3D average pool, SAME padding; the divisor counts only the valid
-    (unpadded) cells of each window, as TensorFlow does.  Separable, as JAX
-    serves it (`ops/nn.py:394-414`): one window sum per spatial axis, each
-    summed one cell at a time in x.dtype, divided by the outer product of
-    the per-axis valid counts.  An ActQ keeps its bound."""
+    (unpadded) cells of each window, as TensorFlow does, and is the outer
+    product of the per-axis valid counts.  An ActQ keeps its bound.
+
+    Separable (serving, JAX `ops/nn.py:394-414`): one window sum per spatial
+    axis, each summed one cell at a time in x.dtype.  `separable=False`
+    (training, JAX `:383-393`): one k^3 window sum, which keeps no
+    per-axis intermediates for the backward pass, taken in float32."""
     x, x_amax = unwrap(x)
     sums = x
     counts = torch.ones((), dtype=x.dtype, device=x.device)
     for axis in (2, 3, 4):
         size = x.shape[axis]
         lo, hi = _same_pads(size, kernel, stride)
-        pads = [0, 0] * 3
-        pads[2 * (4 - axis)] = lo  # F.pad lists the last axis first
-        pads[2 * (4 - axis) + 1] = hi
-        windows = F.pad(sums, pads).unfold(axis, kernel, stride)
-        sums = windows[..., 0]
-        for j in range(1, kernel):
-            sums = sums + windows[..., j]
+        if separable:
+            pads = [0, 0] * 3
+            pads[2 * (4 - axis)] = lo  # F.pad lists the last axis first
+            pads[2 * (4 - axis) + 1] = hi
+            windows = F.pad(sums, pads).unfold(axis, kernel, stride)
+            sums = windows[..., 0]
+            for j in range(1, kernel):
+                sums = sums + windows[..., j]
         ones = torch.ones((size,), dtype=x.dtype, device=x.device)
         c = F.pad(ones, (lo, hi)).unfold(0, kernel, stride).sum(-1)
         shape = [1, 1, 1, 1, 1]
         shape[axis] = c.shape[0]
         counts = counts * c.reshape(shape)
+    if not separable:
+        # the window sums in float32, rounded once to x.dtype (what CUDA's
+        # bfloat16 kernel does; the CPU has none)
+        sums = F.avg_pool3d(_pad_same(x, kernel, stride).float(), kernel, stride,
+                            divisor_override=1).to(x.dtype)
     out = sums / counts
     return out if x_amax is None else ActQ(out, x_amax)
 
@@ -240,11 +276,12 @@ class Inception3D(nn.Module):
     and a 1x1x1 conv of n; the four are concatenated on channels (3n
     outputs).
 
-    The pool branch follows JAX's inference order (`ops/nn.py:430-459`):
-    relu(BN(conv(avgpool(x)))) when cin <= n; when cin > n the conv and BN
-    run first on x, without ReLU, then the pool, then the ReLU (the same
-    function up to float reassociation, on n instead of cin channels).
-    Under int8 that branch carries the bound of its pre-ReLU BN output."""
+    The pool branch follows JAX's order (`ops/nn.py:425-459`).  In training
+    and when cin <= n: relu(BN(conv(avgpool(x)))), the pool non-separable
+    in training.  At inference with cin > n the conv and BN run first on x,
+    without ReLU, then the pool, then the ReLU (the same function up to
+    float reassociation, on n instead of cin channels).  Under int8 that
+    branch carries the bound of its pre-ReLU BN output."""
 
     def __init__(self, cin: int, n_filters: int, kernel_sizes=(3, 5)):
         super().__init__()
@@ -257,12 +294,13 @@ class Inception3D(nn.Module):
         self.conv4 = ConvBN3D(cin, n, 1)
         self.out_channels = n + 2 * (n // 2) + n
 
-    def forward(self, x):
-        one = self.conv1(x)
-        b1 = self.conv2(one)
-        b2 = self.conv3(one)
-        if self.cin <= self.n:
-            ap = self.conv4(avg_pool3d(x, self.k1, 1))
+    def forward(self, x, training: bool = False, momentum=None):
+        bn = dict(training=training, momentum=momentum)
+        one = self.conv1(x, **bn)
+        b1 = self.conv2(one, **bn)
+        b2 = self.conv3(one, **bn)
+        if training or self.cin <= self.n:
+            ap = self.conv4(avg_pool3d(x, self.k1, 1, separable=not training), **bn)
         else:
             ap, ap_amax = unwrap(self.conv4(x, relu=False))
             ap = F.relu(avg_pool3d(ap, self.k1, 1))
@@ -298,12 +336,21 @@ class Backbone(nn.Module):
                 raise ValueError(f"unknown backbone entry: {entry}")
         self.out_features = c * r ** 3
 
-    def forward(self, x):
+    def forward(self, x, training: bool = False, momentum=None):
         for i, entry in enumerate(self.spec):
             if entry[0] == "incep":
-                x = getattr(self, f"incep{i}")(x)
+                x = getattr(self, f"incep{i}")(x, training, momentum)
             else:
                 x = max_pool3d(x, entry[1], entry[2])
         x, x_amax = unwrap(x)
         x = x.permute(0, 2, 3, 4, 1).reshape(x.shape[0], -1)
         return x if x_amax is None else ActQ(x, x_amax)
+
+
+def l2_weight_penalty(module: nn.Module) -> torch.Tensor:
+    """Sum of 0.5 * ||w||^2 over the conv and linear kernels in float32;
+    biases and BatchNorm parameters are left out (JAX `ops/nn.py:502-514`,
+    the reference's 'losses' collection, `tf_util.py:36-54`)."""
+    terms = [0.5 * torch.sum(torch.square(p.float()))
+             for name, p in module.named_parameters() if name.rsplit(".", 1)[-1] == "w"]
+    return torch.stack(terms).sum()

@@ -42,7 +42,6 @@ def prepare(work: str) -> None:
     from nestinet_tpu_torch.core.rundir import RunDir
     from nestinet_tpu_torch.data.synthetic import build_protocol_benchmark
     from nestinet_tpu_torch.models import build_model
-    from nestinet_tpu_torch.models.base import init_params
     from nestinet_tpu_torch.ops.gmm import get_3d_grid_gmm
 
     dev = torch.device("cuda")
@@ -62,9 +61,8 @@ def prepare(work: str) -> None:
     cfg.save(rd.config_path)
     gmm = get_3d_grid_gmm([8, 8, 8], variance=cfg.gmm_variance)
     gmm.save(rd.gmm_path)
-    model = build_model(cfg, gmm)
     gen = torch.Generator().manual_seed(smoke.SEED)
-    init_params(model, gen)
+    model = build_model(cfg, gmm, gen)
     smoke.randomize_bn(model, gen)
     smoke.spread_manager_logits(model.to(dev), grids, queries, radii, bseed, caps)
     checkpoint.save(rd.path, model.cpu().state_dict())

@@ -6,7 +6,7 @@ port behind its back.
 A subprocess blocks those packages and `nestinet_tpu` in `sys.modules`
 before anything else, imports every module of the port, and runs a tiny CPU
 forward, dense and routed on device-extracted patches, then the same model
-folded and in int8.  An AST scan of every file of the port and of
+folded and in int8, then one train and one eval step.  An AST scan of every file of the port and of
 `chip_smoke.py` fails on any import of `nestinet_tpu` or its submodules,
 including the imports inside functions that the subprocess never reaches.
 """
@@ -34,12 +34,15 @@ SCRIPT = textwrap.dedent(
         "nestinet_tpu_torch.core.device",
         "nestinet_tpu_torch.core.checkpoint",
         "nestinet_tpu_torch.core.config",
+        "nestinet_tpu_torch.core.profiling",
         "nestinet_tpu_torch.core.rundir",
         "nestinet_tpu_torch.core.textio",
         "nestinet_tpu_torch.data",
         "nestinet_tpu_torch.data.pcpnet",
         "nestinet_tpu_torch.data.dataset",
         "nestinet_tpu_torch.data.loader",
+        "nestinet_tpu_torch.data.augment",
+        "nestinet_tpu_torch.data.rotations",
         "nestinet_tpu_torch.data.native",
         "nestinet_tpu_torch.data.synthetic",
         "nestinet_tpu_torch.eval",
@@ -57,6 +60,11 @@ SCRIPT = textwrap.dedent(
         "nestinet_tpu_torch.models.backbones",
         "nestinet_tpu_torch.models.base",
         "nestinet_tpu_torch.models.experts",
+        "nestinet_tpu_torch.models.losses",
+        "nestinet_tpu_torch.train.schedules",
+        "nestinet_tpu_torch.train.train_step",
+        "nestinet_tpu_torch.train.trainer",
+        "nestinet_tpu_torch.cli.train",
         "nestinet_tpu_torch.convert",
         "nestinet_tpu_torch.infer.writer",
         "nestinet_tpu_torch.infer.predict",
@@ -65,6 +73,7 @@ SCRIPT = textwrap.dedent(
         "nestinet_tpu_torch.scripts.mups_kernel_exp",
         "nestinet_tpu_torch.scripts.int8_kernel_parts",
         "nestinet_tpu_torch.scripts.serve_compare",
+        "nestinet_tpu_torch.scripts.train_step_precision",
         "nestinet_tpu_torch.cli.test",
     ):
         importlib.import_module(mod)
@@ -75,12 +84,11 @@ SCRIPT = textwrap.dedent(
     from nestinet_tpu_torch.eval.evaluate import evaluate_dataset
     from nestinet_tpu_torch.data.synthetic import build_protocol_benchmark
     from nestinet_tpu_torch.models import build_model
-    from nestinet_tpu_torch.models.base import init_params
     from nestinet_tpu_torch.ops.gmm import get_3d_grid_gmm
 
     cfg = Config(tiny_backbone=True, num_point=8, num_gaussians=3)
-    model = build_model(cfg, get_3d_grid_gmm([3, 3, 3], variance=1.0 / 9))
-    init_params(model, torch.Generator().manual_seed(0))
+    model = build_model(cfg, get_3d_grid_gmm([3, 3, 3], variance=1.0 / 9),
+                        torch.Generator().manual_seed(0))
     model.eval()
     g = torch.Generator().manual_seed(1)
     points = torch.rand((4, 24, 3), generator=g) * 2 - 1
@@ -134,6 +142,17 @@ SCRIPT = textwrap.dedent(
                        os.path.join(res, name + ".normals"))
         summary = evaluate_dataset(tmp, res, "testset", log=lambda *_: None)
     assert summary["rms"] < 1e-3 and summary["pgp5"] == 1.0
+
+    from nestinet_tpu_torch.train.train_step import (
+        make_eval_step, make_optimizer, make_train_step)
+    batch = {"points": points, "n_eff": n_eff,
+             "normals": torch.rand((4, 3), generator=g) - 0.5}
+    opt = make_optimizer(model, cfg)
+    before = model.manager.head.fc1.linear.w.clone()
+    loss = make_train_step(model, cfg, opt)(batch, 0)
+    assert torch.isfinite(loss) and not torch.equal(before, model.manager.head.fc1.linear.w)
+    eval_loss, cos = make_eval_step(model)(batch)
+    assert torch.isfinite(eval_loss) and cos.shape == (4,)
     assert all(sys.modules.get(n) is None
                for n in ("jax", "haiku", "flax", "nestinet_tpu"))
     print("NOJAX_OK")
