@@ -85,12 +85,36 @@ and prints no result):
      validation sets (18 and 6 shapes, 64 patches each, B = 256: 4 steps an
      epoch) for 2 epochs, then `--max_epoch 3 --resume 1` in place, then
      `python -m nestinet_tpu_torch.cli.test --extraction=device` serves the
-     run's best checkpoint on two test shapes: finite normals and RMS.
+     run's best checkpoint on two test shapes: finite normals and RMS;
+ 14. the ablation models (`models/ss.py`, `ms.py`, `switching.py`), each at
+     the full width of its JAX definition with 512 points and 8^3
+     Gaussians, random weights and BatchNorm state from a seed: the
+     single-scale model on the flagship's middle radius (0.03), the
+     multi-scale one on all three, the switching one on the smallest and
+     largest (its noise head rescaled on one batch so that both branches
+     are taken).  (a) Each serves two of the six test shapes (10,000
+     patches) through `predict_shapes_device` in float32 and bfloat16, the
+     single-scale model also in int8 with BatchNorm folded, which must
+     launch the int8 kernel: one MuPS launch a batch, finite `.normals` and
+     no `.experts`, a finite RMS, patches/s and peak memory; the switching
+     model's share of served patches in each branch is printed, and a
+     branch that serves none fails the run; one device batch is held
+     against the same model on the plain MuPS at atol 1e-4 in float32.  (b) Each model's float32
+     train step at B = 256 is timed as in 13b; then `cli.train --model
+     ...` runs 2 epochs at B = 256 (the single- and multi-scale models on
+     the synthetic training and validation sets, 4 steps an epoch; the
+     switching model on the switching benchmark at 2,000 points a shape,
+     32 patches a shape, 3 steps an epoch), the three at once (their
+     float32 step peaks sum to about half the card), and `cli.test
+     --extraction=device` serves each trained run on two shapes.  (c) `cli.test` serves the run
+     dir that the JAX package wrote (`nestinet_tpu_torch/testdata/
+     jax_run_moe3/`, read by the flax-free msgpack reader) on the card in
+     float32: normals within atol 1e-4 of the ones JAX served on the CPU.
 
 Phases 1-12 ran in about 300 s on an H100 (a quarter of its 1,200 s
 limit), so the only cuts of depth are host-dense's, which serves two of the
-six shapes, and phase 13's: a few steps an epoch, and cli.test on two
-shapes.
+six shapes, and phase 13's and 14's: a few steps an epoch, and cli.test on
+two shapes.
 
 Each serving path and the kernels' entry point run with the launch counts
 set to 0 just before and read just after; a kernel of the path that was
@@ -142,6 +166,20 @@ TRAIN_PERTURB_REL = 1e-7
 TRAIN_GRAD_SPREADS = 4.0
 TRAIN_BIAS_RTOL = 1e-4  # a BN-fed bias's error against its kernel's gradient
 TRAIN_PATCHES_PER_SHAPE = 64  # 18 training shapes: 4 steps of 256 an epoch
+# phase 14, the ablation models
+FLAGSHIP_RADII = (0.01, 0.03, 0.05)
+ABLATION_RADII = {"ss_norm_est": (1,), "ms_norm_est": (0, 1, 2), "ms_sw_n_est": (0, 2)}
+# (label, compute_dtype, fold_bn) served per ablation model
+ABLATION_DTYPES = {
+    "ss_norm_est": (("f32", "float32", False), ("bf16", "bfloat16", False),
+                    ("int8+fold", "int8", True)),
+    "ms_norm_est": (("f32", "float32", False), ("bf16", "bfloat16", False)),
+    "ms_sw_n_est": (("f32", "float32", False), ("bf16", "bfloat16", False)),
+}
+SWITCH_POINTS = 2000  # points per shape of the switching benchmark
+# 30 training and 10 validation shapes: 3 steps of 256 an epoch, 1 validation batch
+SWITCH_PATCHES_PER_SHAPE = 32
+SWITCH_GAP = 1e-5  # noise estimates this close to 0.015 may take either branch
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -630,8 +668,9 @@ def check_extraction(dev, data, shape, radii_frac):
 
 
 def check_outputs(data, out_dir, testset, n_experts):
-    """Every `.normals` row finite, every `.experts` id in range, a finite
-    RMS; returns the evaluation summary."""
+    """Every `.normals` row finite, every `.experts` id in range (a model
+    other than the mixture of experts, `n_experts` None, writes none), a
+    finite RMS; returns the evaluation summary."""
     import numpy as np
 
     from nestinet_tpu_torch.eval.evaluate import evaluate_dataset
@@ -641,9 +680,13 @@ def check_outputs(data, out_dir, testset, n_experts):
     for shape in shapes:
         n_pts = np.loadtxt(os.path.join(data, shape + ".xyz")).shape[0]
         normals = np.loadtxt(os.path.join(out_dir, shape + ".normals"))
-        experts = np.loadtxt(os.path.join(out_dir, shape + ".experts"))
         if normals.shape != (n_pts, 3) or not np.isfinite(normals).all():
             fail(f"{shape}.normals: shape {normals.shape} or non-finite values")
+        if n_experts is None:
+            if os.path.exists(os.path.join(out_dir, shape + ".experts")):
+                fail(f"{shape}.experts written for a model without experts")
+            continue
+        experts = np.loadtxt(os.path.join(out_dir, shape + ".experts"))
         if experts.shape != (n_pts,) or experts.min() < 0 or experts.max() >= n_experts:
             fail(f"{shape}.experts: bad shape or ids out of [0, {n_experts})")
     summary = evaluate_dataset(data, out_dir, testset, log=lambda *_: None)
@@ -668,8 +711,9 @@ def serve(name, fn, kernels, card, int8: bool = False):
              if "loader_wait_seconds" in stats else "")
     print(f"{name}: {stats['n_patches']} patches in {stats['n_batches']} batches, "
           f"{stats['seconds']:.2f} s, {stats['patches_per_sec']:.1f} patches/s{extra}, "
-          f"peak {peak_gb:.2f} GB, launches {launches}, patches per expert "
-          f"{stats['expert_rows']} [{card}]", flush=True)
+          f"peak {peak_gb:.2f} GB, launches {launches}, patches per "
+          + (f"branch {stats['branch_rows']}" if "branch_rows" in stats
+             else f"expert {stats.get('expert_rows')}") + f" [{card}]", flush=True)
     if launches["tdmfv_n_est"] != stats["n_batches"]:
         fail(f"{name}: MuPS launches {launches['tdmfv_n_est']} != batches "
              f"{stats['n_batches']}")
@@ -809,21 +853,24 @@ def perturbed(batch: dict, rel: float, seed: int) -> dict:
     return dict(batch, points=pts * (1 + rel * u))
 
 
-def training_batch(dev, batch: int, seed: int):
+def training_batch(dev, batch: int, seed: int, radii_frac=(0.01, 0.03, 0.05)):
     """One batch of `batch` patches at PCPNet's density (`served_rows`:
-    extracted on the card from a 100,000-point sphere) with random unit
-    normals as targets, on `dev`."""
+    extracted on the card from a 100,000-point sphere at `radii_frac`) with
+    random unit normals and noise levels in [0, 0.03) as targets, on
+    `dev`."""
     import numpy as np
     import torch
 
     from nestinet_tpu_torch.scripts.mups_kernel_parts import served_rows
 
     with torch.no_grad():
-        pts, ne = served_rows(dev, seed, batch=batch)
-    normals = np.random.RandomState(seed).normal(size=(batch, 3)).astype(np.float32)
+        pts, ne = served_rows(dev, seed, batch=batch, radii_frac=radii_frac)
+    rng = np.random.RandomState(seed)
+    normals = rng.normal(size=(batch, 3)).astype(np.float32)
     normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    noise = rng.uniform(0.0, 0.03, size=batch).astype(np.float32)
     return {"points": pts.reshape(batch, -1, 3).clone(), "n_eff": ne.reshape(batch, -1).clone(),
-            "normals": torch.from_numpy(normals).to(dev)}
+            "normals": torch.from_numpy(normals).to(dev), "noise": torch.from_numpy(noise).to(dev)}
 
 
 def check_train_step_against_cpu(dev, cfg, gmm, kernel):
@@ -908,11 +955,12 @@ def check_train_step_against_cpu(dev, cfg, gmm, kernel):
 
 
 def time_train_steps(dev, cfg, gmm, dtype, kernel, card):
-    """Phase 13b: the full-width train step at B = 256 (or the largest
-    batch that fits) on one fixed batch: ms per step (CUDA events, the
-    median of steps 3-10), patches/s, peak memory, MuPS launches per step,
-    the MuPS kernel's share of the step; the loss after the last adam step
-    must be below the first step's."""
+    """Phase 13b (and 14b, for each ablation model in float32): the
+    full-width train step at B = 256 (or the largest batch that fits) on
+    one fixed batch: ms per step (CUDA events, the median of steps 3-10),
+    patches/s, peak memory, MuPS launches per step, the MuPS kernel's share
+    of the step; the loss after the last adam step must be below the first
+    step's."""
     import dataclasses
 
     import torch
@@ -926,7 +974,7 @@ def time_train_steps(dev, cfg, gmm, dtype, kernel, card):
         c = dataclasses.replace(cfg, compute_dtype=dtype, batch_size=batch_size)
         model = build_model(c, gmm, torch.Generator().manual_seed(SEED)).to(dev)
         step_fn = make_train_step(model, c, make_optimizer(model, c))
-        batch = training_batch(dev, batch_size, SEED + 1)
+        batch = training_batch(dev, batch_size, SEED + 1, cfg.patch_radius)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernel.reset_launches()
@@ -959,7 +1007,7 @@ def time_train_steps(dev, cfg, gmm, dtype, kernel, card):
            "peak_memory_gb": peak_gb, "mups_launches_per_step": launches / steps,
            "mups_ms": mups_ms, "mups_share": mups_ms / ms, "first_loss": losses[0],
            "last_loss": losses[-1], "steps": steps, "step_ms": times}
-    print(f"train step {dtype} [full width, B={batch_size}]: {ms:.1f} ms (median of steps "
+    print(f"train step {cfg.model} {dtype} [full width, B={batch_size}]: {ms:.1f} ms (median of steps "
           f"3-10), {out['patches_per_s']:.1f} patches/s, peak {peak_gb:.2f} GB, MuPS "
           f"{launches / steps:g} launches per step, {mups_ms:.3f} ms "
           f"({100 * out['mups_share']:.2f}% of the step); loss {losses[0]:.4f} at step 1, "
@@ -987,15 +1035,34 @@ def train_cli(data, run, *extra):
 def run_module(module, *args) -> float:
     """Run `python -m module args` from the checkout's root; raise on a
     non-zero exit, print its output's last lines; returns its seconds."""
+    return run_modules([(module, args)])[0]
+
+
+def run_modules(calls) -> list:
+    """Run several `python -m module args` at once, each from the
+    checkout's root; wait for all, print each one's last lines, raise if
+    one exited non-zero; returns their seconds."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", module, *args], capture_output=True,
-                          text=True, cwd=os.path.dirname(os.path.abspath(__file__)),
-                          timeout=600)
-    secs = time.perf_counter() - t0
-    for line in proc.stdout.strip().splitlines()[-12:]:
-        print(f"  {module}: {line}", flush=True)
-    if proc.returncode != 0:
-        fail(f"{module} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, "-m", module, *args], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, cwd=root)
+             for module, args in calls]
+    secs, errors = [], []
+    try:
+        for (module, _), proc in zip(calls, procs):
+            out, err = proc.communicate(timeout=600)
+            secs.append(time.perf_counter() - t0)
+            for line in out.strip().splitlines()[-12:]:
+                print(f"  {module}: {line}", flush=True)
+            if proc.returncode != 0:
+                errors.append(f"{module} exited {proc.returncode}:\n{err[-3000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if errors:
+        fail("\n".join(errors))
     return secs
 
 
@@ -1039,6 +1106,272 @@ def check_trained_run(data, run):
           f"{summary['pgp10']:.4f}, {secs:.1f} s", flush=True)
     return {"metrics": metrics, "best_epoch": best["epoch"], "rms": summary["rms"],
             "test_seconds": secs}
+
+
+# ---------------------------------------------------------------- phase 14
+
+
+def spread_noise_head(model, grid):
+    """Rescale the switching model's noise head so that its estimates on one
+    batch's grid are 0.015 + 0.01 N(0, 1)-like: half the patches take each
+    branch.  Returns the small-scale branch's share on that batch after."""
+    import torch
+
+    from nestinet_tpu_torch.models.switching import NOISE_SWITCH_THRESHOLD
+
+    net = model.noise
+    with torch.inference_mode():
+        h = net.backbone(grid.permute(0, 4, 1, 2, 3)[:, 20:])
+        h = net.head.fc3(net.head.fc2(net.head.fc1(h)))
+    last = net.head.fc4.linear
+    with torch.no_grad():
+        z = (h @ last.w.t())[:, 0]
+        scale = 0.01 / z.std()
+        last.w.mul_(scale)
+        zs = (z * scale).sort().values  # the threshold between the two middle patches
+        last.b.fill_(NOISE_SWITCH_THRESHOLD - float(zs[(len(zs) - 1) // 2:len(zs) // 2 + 1].mean()))
+        noise = model.forward_grid(grid)["noise_pred"]
+    return float((noise < NOISE_SWITCH_THRESHOLD).float().mean())
+
+
+def make_ablation_run(tmp, data, model_name, grids, queries, radii, seed, caps, dev):
+    """Phase 14a: a full-width run dir of one ablation model (its radii out
+    of the flagship's, 512 points, 8^3 Gaussians, random weights and
+    BatchNorm state from a seed; the switching model's noise head spread
+    across the switch); returns (run path, cfg, the model's radii indices,
+    the small branch's share on one batch or None)."""
+    import torch
+
+    from nestinet_tpu_torch.core import checkpoint
+    from nestinet_tpu_torch.core.config import Config
+    from nestinet_tpu_torch.core.rundir import RunDir
+    from nestinet_tpu_torch.infer.device_pipeline import extract_batch
+    from nestinet_tpu_torch.models import build_model
+    from nestinet_tpu_torch.ops.gmm import get_3d_grid_gmm
+
+    idx = ABLATION_RADII[model_name]
+    cfg = Config(model=model_name, log_dir=os.path.join(tmp, f"run_{model_name}"),
+                 data_path=data, patch_radius=tuple(FLAGSHIP_RADII[i] for i in idx),
+                 num_point=512, num_gaussians=8, seed=SEED)
+    rd = RunDir.create(cfg.log_dir)
+    cfg.save(rd.config_path)
+    gmm = get_3d_grid_gmm([8, 8, 8], variance=cfg.gmm_variance)
+    gmm.save(rd.gmm_path)
+    gen = torch.Generator().manual_seed(SEED)
+    model = build_model(cfg, gmm, gen)
+    randomize_bn(model, gen)
+    share = None
+    if model_name == "ms_sw_n_est":
+        model.to(dev).eval()
+        with torch.inference_mode():
+            points, n_eff = extract_batch([grids[i] for i in idx], queries,
+                                          [radii[i] for i in idx], seed, num_point=512,
+                                          caps=[caps[i] for i in idx])
+            grid = model.mups_grid(points, n_eff)
+        share = spread_noise_head(model, grid)
+    checkpoint.save(rd.path, model.cpu().state_dict())
+    n_params = sum(v.numel() for v in model.state_dict().values())
+    print(f"run dir: {model_name}, radii {cfg.patch_radius}, {n_params} weights"
+          + ("" if share is None else f"; the small-scale branch takes {share:.3f} of one "
+             f"batch of {DEVICE_BATCH}, the large-scale one {1 - share:.3f}"), flush=True)
+    return rd.path, cfg, idx, share
+
+
+def check_ablation_batch(run, cfg, idx, grids, queries, radii, seed, caps, dev):
+    """Phase 14a: one device batch through the served model on the kernel
+    and on the plain MuPS: normals (and the noise estimate) within
+    NORMALS_ATOL in float32; the switching model's normals wherever both
+    noise estimates lie on one side of the switch and SWITCH_GAP or more
+    from it (the noise head was spread on this batch, so its middle
+    patches sit at the switch), at most 2% of the batch left out; returns
+    the errors."""
+    import torch
+
+    from nestinet_tpu_torch.infer.device_pipeline import extract_batch
+    from nestinet_tpu_torch.infer.predict import load_run
+    from nestinet_tpu_torch.ops import mups as mups_ops
+
+    _, _, _, model = load_run(run, dev, "float32")
+    with torch.inference_mode():
+        points, n_eff = extract_batch([grids[i] for i in idx], queries, [radii[i] for i in idx],
+                                      seed, num_point=512, caps=[caps[i] for i in idx])
+        out_k = model(points, n_eff)
+        rows = mups_ops.tdmfv_n_est_reference(points.reshape(-1, 512, 3), model.gmm_w,
+                                              model.gmm_mu, model.gmm_sigma, n_eff.reshape(-1))
+        out_p = model.forward_grid(mups_ops.stats_to_grid(rows, DEVICE_BATCH, cfg.n_scales,
+                                                          model.resolution))
+        torch.cuda.synchronize()
+    keep = torch.ones(DEVICE_BATCH, dtype=torch.bool, device=dev)
+    if "noise_pred" in out_k:
+        from nestinet_tpu_torch.models.switching import NOISE_SWITCH_THRESHOLD as t
+
+        nk, np_ = out_k["noise_pred"], out_p["noise_pred"]
+        keep = ((nk < t) == (np_ < t)) & ((nk - t).abs() >= SWITCH_GAP)
+    errs = {k: (out_k[k] - out_p[k])[keep if k == "n_pred" else slice(None)].abs().max().item()
+            for k in out_k}
+    left_out = DEVICE_BATCH - int(keep.sum())
+    print(f"{cfg.model}, one device batch vs plain MuPS: max abs err {errs} (atol "
+          f"{NORMALS_ATOL}); {left_out} patches at the switch left out; max |normal| "
+          f"{out_k['n_pred'].abs().max().item():.3f}", flush=True)
+    if not all(e <= NORMALS_ATOL for e in errs.values()) or left_out > 0.02 * DEVICE_BATCH:
+        fail(f"{cfg.model}: the kernel and the plain MuPS disagree: {errs}, {left_out} left out")
+    errs["left_out_at_switch"] = left_out
+    del model
+    return errs
+
+
+def ablation_train_args(model_name, data, sw_data, run):
+    """Phase 14b: `cli.train` of one ablation model at full width, B = 256,
+    2 epochs of a few steps (the switching model on the switching
+    benchmark)."""
+    if model_name == "ms_sw_n_est":
+        data, lists, pps = sw_data, ("trainingset_switching.txt",
+                                     "validationset_switching.txt"), SWITCH_PATCHES_PER_SHAPE
+    else:
+        lists, pps = ("trainingset_whitenoise.txt", "validationset.txt"), TRAIN_PATCHES_PER_SHAPE
+    radii = [str(FLAGSHIP_RADII[i]) for i in ABLATION_RADII[model_name]]
+    return ["--model", model_name, "--data_path", data, "--log_dir", run,
+            "--trainset", lists[0], "--testset", lists[1], "--patch_radius", *radii,
+            "--num_point", "512", "--num_gaussians", "8", "--batch_size", "256",
+            "--patches_per_shape", str(pps), "--seed", str(SEED), "--max_epoch", "2"]
+
+
+def check_ablation_trained(model_name, run):
+    """Phase 14b: 2 train and 2 eval epochs in metrics.jsonl with finite
+    losses (the switching model's noise_loss too) and a finite validation
+    RMS, the periodic checkpoint."""
+    import json as _json
+
+    import numpy as np
+
+    from nestinet_tpu_torch.core import checkpoint
+
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        metrics = [_json.loads(line) for line in f]
+    kinds = [m["kind"] for m in metrics]
+    if kinds != ["train", "eval"] * 2 or not checkpoint.exists(run):
+        fail(f"{model_name}: the trained run holds {kinds}")
+    keys = ("loss", "noise_loss") if model_name == "ms_sw_n_est" else ("loss",)
+    if not all(np.isfinite(m[k]) for m in metrics if m["kind"] == "train" for k in keys):
+        fail(f"{model_name}: non-finite {keys} in metrics.jsonl")
+    if not all(np.isfinite(m["rms_deg"]) for m in metrics if m["kind"] == "eval"):
+        fail(f"{model_name}: an epoch validated no batch")
+    return [{k: m.get(k) for k in ("kind", "loss", "noise_loss", "rms_deg") if k in m}
+            for m in metrics]
+
+
+def check_jax_fixture(tmp):
+    """Phase 14c: `cli.test` serves the committed run dir that the JAX
+    package wrote (`nestinet_tpu_torch/testdata/jax_run_moe3/`, read by the
+    flax-free reader) on the card in float32 with device extraction: the
+    normals within NORMALS_ATOL of the ones JAX served on the CPU."""
+    import shutil
+
+    import numpy as np
+
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "nestinet_tpu_torch",
+                           "testdata", "jax_run_moe3")
+    run, data = os.path.join(tmp, "jax_run"), os.path.join(tmp, "jax_run_data")
+    shutil.copytree(os.path.join(fixture, "run"), run)
+    shutil.copytree(os.path.join(fixture, "data"), data)
+    secs = run_module("nestinet_tpu_torch.cli.test", "--results_path", run, "--dataset_path",
+                      data, "--dataset_name", "card", "--compute_dtype", "float32",
+                      "--extraction", "device", "--batch_size", "64", "--model",
+                      "experts_n_est")
+    out = {}
+    for ext in (".normals", ".experts"):
+        got = np.loadtxt(os.path.join(run, "card_results", "sphere400" + ext))
+        want = np.loadtxt(os.path.join(fixture, "jax_normals", "sphere400" + ext))
+        out[ext] = (got, want)
+    got, want = out[".normals"]
+    err = float(np.abs(got - want).max())
+    same = float((out[".experts"][0] == out[".experts"][1]).mean())
+    print(f"JAX run dir on the card: {got.shape[0]} normals, max abs err {err:.3e} against "
+          f"JAX's on the CPU (atol {NORMALS_ATOL}), experts equal on {same:.3f}, "
+          f"{secs:.1f} s", flush=True)
+    if got.shape != want.shape or not err <= NORMALS_ATOL:
+        fail(f"the JAX run dir served on the card differs from JAX's normals: {err}")
+    return {"max_abs_err": err, "experts_equal": same, "seconds": secs}
+
+
+def phase14(tmp, data, dev, grids, queries, radii, bseed, caps, run_gmm, kernels, card):
+    """Phase 14: each ablation model served at full width from a seed (f32,
+    bf16, and int8+fold for the single-scale model) on two test shapes, one
+    device batch held against the plain MuPS, the f32 train step timed,
+    `cli.train` for 2 epochs and `cli.test` of the trained run, then the
+    JAX run dir served on the card; returns (per-model record, the JAX run
+    dir's record)."""
+    import torch
+
+    from nestinet_tpu_torch.core.config import Config
+    from nestinet_tpu_torch.data.synthetic import build_switching_benchmark
+    from nestinet_tpu_torch.infer.device_pipeline import predict_shapes_device
+
+    kernel = kernels[0]
+    t14 = time.perf_counter()
+    sw_data = os.path.join(tmp, "switching")
+    sw_sets = build_switching_benchmark(sw_data, n_points=SWITCH_POINTS, n_pidx=100,
+                                        seed=SEED % 1000)
+    sw_two = [n for n in sw_sets["testset_switching.txt"]
+              if n.endswith(("_sw000", "_sw030"))][:2]
+    with open(os.path.join(sw_data, "testset_two.txt"), "w") as f:
+        f.write("\n".join(sw_two) + "\n")
+    ablations = {}
+    for model_name in ABLATION_RADII:
+        run, acfg, idx, share = make_ablation_run(tmp, data, model_name, grids, queries,
+                                                  radii, bseed, caps, dev)
+        runs = {}
+        for label, dtype, fold in ABLATION_DTYPES[model_name]:
+            runs[label] = serve(f"{model_name} device {label}", lambda: predict_shapes_device(
+                run, dataset_name=f"ablation_{label}", testset="testset_two.txt",
+                data_path=data, batch_size=DEVICE_BATCH, compute_dtype=dtype, fold_bn=fold),
+                kernels, card, int8=dtype == "int8")
+            runs[label]["rms"] = check_outputs(data, runs[label]["output_dir"],
+                                               "testset_two", None)["rms"]
+            if "branch_rows" in runs[label]:
+                rows = runs[label]["branch_rows"]
+                small = rows["small_scale"] / runs[label]["n_patches"]
+                print(f"{model_name} device {label}: of the {runs[label]['n_patches']} served "
+                      f"patches the small-scale branch takes {small:.4f}, the large-scale "
+                      f"one {1 - small:.4f}", flush=True)
+                if min(rows.values()) == 0:
+                    fail(f"{model_name} {label}: a branch served no patch: {rows}")
+        errs = check_ablation_batch(run, acfg, idx, grids, queries, radii, bseed, caps, dev)
+        ablations[model_name] = {"radii": acfg.patch_radius, "serving": runs,
+                                 "plain_mups_max_abs_err": errs,
+                                 "small_branch_share_one_batch": share}
+        print(f"evaluate {model_name}: RMS " + ", ".join(
+            f"{k} {v['rms']:.4f} deg" for k, v in runs.items()) + " (random weights, two "
+            "shapes)", flush=True)
+    torch.cuda.empty_cache()
+    for model_name, idx in ABLATION_RADII.items():
+        tcfg = Config(model=model_name, patch_radius=tuple(FLAGSHIP_RADII[i] for i in idx),
+                      num_point=512, num_gaussians=8, seed=SEED)
+        ablations[model_name]["train_step_f32"] = time_train_steps(
+            dev, tcfg, run_gmm, "float32", kernel, card)
+    # the three cli.train calls at once: their f32 step peaks sum to about half the card
+    train_runs = {m: os.path.join(tmp, f"train_{m}") for m in ABLATION_RADII}
+    for m, secs in zip(ABLATION_RADII, run_modules([
+            ("nestinet_tpu_torch.cli.train", ablation_train_args(m, data, sw_data, train_runs[m]))
+            for m in ABLATION_RADII])):
+        ablations[m]["cli_train_seconds"] = secs
+    test_data = {m: sw_data if m == "ms_sw_n_est" else data for m in ABLATION_RADII}
+    test_secs = run_modules([("nestinet_tpu_torch.cli.test", [
+        "--results_path", train_runs[m], "--dataset_path", test_data[m], "--testset",
+        "testset_two.txt", "--dataset_name", "trained", "--extraction", "device",
+        "--batch_size", str(DEVICE_BATCH), "--model", m]) for m in ABLATION_RADII])
+    for m, secs in zip(ABLATION_RADII, test_secs):
+        ablations[m]["trained_metrics"] = check_ablation_trained(m, train_runs[m])
+        ablations[m]["trained_rms"] = check_outputs(
+            test_data[m], os.path.join(train_runs[m], "trained_results"), "testset_two",
+            None)["rms"]
+        print(f"{m}: cli.train {ablations[m]['cli_train_seconds']:.1f} s (2 epochs, the "
+              f"three at once), cli.test of the trained run {secs:.1f} s (device "
+              f"extraction, bf16, two shapes): RMS {ablations[m]['trained_rms']:.4f} deg; "
+              f"metrics {ablations[m]['trained_metrics']}", flush=True)
+    jax_fixture = check_jax_fixture(tmp)
+    print(f"phase 14: the phase took {time.perf_counter() - t14:.1f} s", flush=True)
+    return ablations, jax_fixture
 
 
 def main(argv=None) -> int:
@@ -1339,6 +1672,10 @@ def main(argv=None) -> int:
         trained = check_trained_run(data, train_run)
         print(f"phase 13: cli.train {train_s:.1f} s (2 epochs), resumed {resume_s:.1f} s (1 "
               f"epoch); the phase took {time.perf_counter() - t13:.1f} s", flush=True)
+
+        # ---- 14. the ablation models: serving, training, a JAX run dir ----
+        ablations, jax_fixture = phase14(tmp, data, dev, grids, queries, radii, bseed, caps,
+                                         run_gmm, kernels, card)
         if "jax" in sys.modules:
             fail("jax was imported")
 
@@ -1358,6 +1695,7 @@ def main(argv=None) -> int:
                                                               "blocked": k2_bound},
         "routed_vs_dense_normals_max_abs_err": route_err,
         "batch_normals_max_abs_err": nerr,
+        "ablations": ablations, "jax_run_dir_on_card": jax_fixture,
     })
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)
@@ -1374,6 +1712,9 @@ def main(argv=None) -> int:
             "launches": dev_sparse["launches"]["tdmfv_n_est"],
             "launches_per_train_step": vs_cpu["mups_launches_train_step"],
             "launches_per_eval_step": vs_cpu["mups_launches_eval_step"],
+            "launches_ablations": {f"{m} {label}": st["launches"]["tdmfv_n_est"]
+                                   for m, a in ablations.items()
+                                   for label, st in a["serving"].items()},
             "max_abs_err": k1_err,
             "ms": k1_ms[R],
             "plain_ms": plain_ms[R],
@@ -1407,6 +1748,8 @@ def main(argv=None) -> int:
             "replaces": "nestinet_tpu/ops/quant.py:85",
             "launches": dtype_runs["int8"]["launches"]["int8_conv3d"],
             "launches_int8_fold": dtype_runs["int8+fold"]["launches"]["int8_conv3d"],
+            "launches_ss_int8_fold":
+                ablations["ss_norm_est"]["serving"]["int8+fold"]["launches"]["int8_conv3d"],
             "max_abs_err": i8_err,
             "ms": i8_widest["ms"],
             "plain_ms": i8_widest["plain_ms"],

@@ -1,22 +1,27 @@
 """Inference CLI of the PyTorch port (counterpart of
 `nestinet_tpu/cli/test.py`).
 
-Reloads a run directory's config, GMM and torch checkpoint (the best one,
+Reloads a run directory's config, GMM and checkpoint (the best one,
 `<run>/ckpt_torch_best/model.pt`, when the trainer wrote it, else
-`<run>/ckpt_torch/model.pt`) and writes
+`<run>/ckpt_torch/model.pt`; in a run dir that only the JAX trainer wrote,
+its `ckpt_best/` or `ckpt/` msgpack) and writes
 `<run>/<dataset>_results/<shape>.normals` (plus `.experts` and
-`.experts_probs`) for every shape in the test list, on the GPU.
+`.experts_probs` for the mixture of experts) for every shape in the test
+list, on the GPU.  The model is the run config's: `experts_n_est`,
+`ss_norm_est`, `ms_norm_est` or `ms_sw_n_est` (`--model` names the one
+the run must hold).
 
 Example:
     python -m nestinet_tpu_torch.cli.test --results_path=log/my_experts \\
         --dataset_name=pcpnet --testset=testset.txt --batch_size=128 \\
         --extraction=device --moe_inference=sparse
 
-Ported: mixture-of-experts inference in bfloat16 (the default, as in the
-JAX CLI), float32 or int8, optionally with BatchNorm folded into the
-kernels (`--fold_bn=1`; default: the run config), routed (sparse, the
-default) or dense, with host (kd-tree) or device (grid-hash ball query)
-patch extraction, on every point or on the `.pidx` subsets
+Ported: inference in bfloat16 (the default, as in the JAX CLI), float32 or
+int8, optionally with BatchNorm folded into the kernels (`--fold_bn=1`;
+default: the run config), the mixture of experts routed (sparse, the
+default) or dense and the other models dense (`--moe_inference` is then
+ignored), with host (kd-tree) or device (grid-hash ball query) patch
+extraction, on every point or on the `.pidx` subsets
 (`--sparse_patches=1`).  Data-parallel serving (`--data_parallel > 1`)
 raises: one GPU serves.
 """
@@ -26,9 +31,13 @@ from __future__ import annotations
 import argparse
 import json
 
+from ..core.config import Config
+from ..core.rundir import RunDir
 from ..infer.device_pipeline import predict_shapes_device
 from ..infer.predict import MOE_INFERENCE, predict_shapes
 from ..models.base import COMPUTE_DTYPES
+
+MODEL_CHOICES = ("ss_norm_est", "ms_norm_est", "ms_sw_n_est", "experts_n_est")
 
 
 def main(argv=None):
@@ -36,6 +45,8 @@ def main(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--results_path", default="log/my_experts",
                    help="path to the trained run directory")
+    p.add_argument("--model", default=None, choices=MODEL_CHOICES,
+                   help="the model the run dir must hold (default: its config's)")
     p.add_argument("--dataset_name", type=str, default="pcpnet")
     p.add_argument("--dataset_path", type=str, default=None,
                    help="data directory (default: the run config's data_path)")
@@ -57,10 +68,16 @@ def main(argv=None):
                         "int8 runs the convs and linears on the int8 kernel")
     p.add_argument("--data_parallel", type=int, default=0,
                    help="not ported: only one GPU serves")
+    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+                   help="cuda (the default) raises without a GPU; cpu only when asked")
     p.add_argument("--fold_bn", type=int, default=None,
                    help="1: fold eval BatchNorm affines into the conv/linear kernels "
                         "at load (ops/fold.py). Default: the run config")
     args = p.parse_args(argv)
+    if args.model is not None:
+        run_model = Config.load(RunDir.open(args.results_path).config_path).model
+        if run_model != args.model:
+            raise ValueError(f"--model {args.model}: the run dir holds {run_model}")
     if args.data_parallel > 1:
         raise NotImplementedError(
             f"--data_parallel={args.data_parallel} is not ported to PyTorch yet; "
@@ -76,6 +93,7 @@ def main(argv=None):
         moe_inference=args.moe_inference,
         compute_dtype=args.compute_dtype,
         fold_bn=None if args.fold_bn is None else bool(args.fold_bn),
+        device=args.device,
     )
     if args.extraction == "device":
         stats = predict_shapes_device(args.results_path, **common)

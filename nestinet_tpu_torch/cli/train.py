@@ -1,14 +1,17 @@
 """Training CLI of the PyTorch port (counterpart of
 `nestinet_tpu/cli/train.py`): the same flags and defaults, plus `--device`.
 
-Trains the mixture of experts (`experts_n_est`; the other models are not
-ported yet) on one GPU, in float32 (the default, as in JAX) or bfloat16,
-into a run directory that `nestinet_tpu_torch.cli.test` serves: the
+Trains `--model` (the mixture of experts `experts_n_est`, the default, or
+the ablations `ss_norm_est`, `ms_norm_est` and `ms_sw_n_est`; the last reads
+per-shape noise levels, `<list>_noise_levels.txt`, as its `noise` target)
+on one GPU, in float32 (the default, as in JAX) or bfloat16, into a run
+directory that `nestinet_tpu_torch.cli.test` serves: the
 periodic checkpoint `ckpt_torch/` (every `--checkpoint_every` epochs and
 the last), the best-validation checkpoint `ckpt_torch_best/`, which
 serving prefers, `metrics.jsonl` and `log_train.txt`.  `--resume 1` (the
 default) continues an existing run dir in place from its periodic
-checkpoint.  `--data_parallel`/`--expert_parallel` > 1 and
+checkpoint, the port's or, in a run dir the JAX trainer wrote, JAX's
+`ckpt/`.  `--data_parallel`/`--expert_parallel` > 1 and
 `--profile_epoch` raise: they are not ported yet.  `--mups_impl` is kept
 for the run config and ignored: the MuPS CUDA kernel runs on the card.
 
@@ -31,13 +34,13 @@ from ..core import checkpoint as ckpt_lib
 from ..core.config import Config
 from ..core.rundir import RunDir
 from ..train.trainer import Trainer
+from .test import MODEL_CHOICES
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--model", default="experts_n_est",
-                   choices=["ss_norm_est", "ms_norm_est", "ms_sw_n_est", "experts_n_est"])
+    p.add_argument("--model", default="experts_n_est", choices=MODEL_CHOICES)
     p.add_argument("--desc", type=str, default="nestinet_tpu training run")
     p.add_argument("--data_path", type=str, default="data/pcpnet/")
     p.add_argument("--log_dir", default="log/my_experts")
@@ -131,12 +134,14 @@ def config_from_args(args) -> Config:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
+    if args.model == "ms_sw_n_est" and "noise" not in cfg.outputs:
+        cfg.outputs = tuple(cfg.outputs) + ("noise",)  # JAX `cli/train.py:131-132`
     # --resume must re-open an existing run dir: RunDir.create numbers a
     # fresh sibling on collision (log_dir/1, /2, ...) and would start a new
     # run next to the checkpoint it was asked to resume.  Re-open iff the
-    # target dir already holds a periodic checkpoint.
+    # target dir already holds a periodic checkpoint (the port's or JAX's).
     run_dir = None
-    if args.resume and ckpt_lib.exists(args.log_dir):
+    if args.resume and ckpt_lib.resumable(args.log_dir):
         run_dir = RunDir.open(args.log_dir)
     trainer = Trainer(cfg, run_dir=run_dir, loader_workers=args.loader_workers,
                       device=args.device)

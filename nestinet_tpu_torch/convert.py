@@ -13,16 +13,24 @@ Works on plain numpy dicts keyed as haiku keys them, and never imports JAX:
 
 In the port the same leaves sit at `manager.backbone.incep0.conv1.conv.w`,
 `manager.head.fc1.linear.w`, `experts.{i}.backbone...`; conv kernels are
-OIDHW, linear weights [out, in].  The flatten before the first FC layer is
+OIDHW, linear weights [out, in].
+
+The ablation models have one flat haiku tree, each module path prefixed by
+its CNN's name (the model class's `HAIKU_NETS`, {torch net: haiku
+prefix}): the single- and multi-scale models' `incep0/conv1/conv` and
+`fc1/linear` are `net.backbone.incep0.conv1.conv` and `net.head.fc1.linear`;
+the switching model's `noise_incep0/...`, `large_fc1/...` and `small_...`
+are `noise.backbone.incep0...`, `large.head.fc1...` and `small....`.  The flatten before the first FC layer is
 in NDHWC order in both packages, so every FC weight converts by a plain
 transpose.
 
 The optimizer state converts by the same paths and transposes: optax's
 `ScaleByAdamState(count, mu, nu)` is torch.optim.Adam's `step`,
 `exp_avg` and `exp_avg_sq` per parameter, and optax.sgd's `TraceState`
-trace is SGD's `momentum_buffer`.  optax's states arrive as objects with
-those fields (the first element of the optimizer's state tuple) and leave
-as plain dicts.
+trace is SGD's `momentum_buffer`.  optax's states arrive as the first element of
+the optimizer's state tuple: optax objects with those fields, or the
+plain dicts that a decoded flax checkpoint holds (the tuple keyed "0",
+"1", ..., each state keyed by field name).  They leave as plain dicts.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models import MODELS
 from .models.experts import expert_groups
 
 PARAM_NAMES = ("w", "b", "gamma", "beta")  # the rest is BatchNorm state
@@ -78,8 +87,22 @@ def module_to_torch(params: dict, state: dict, rename=None, prefix: str = "") ->
     return out
 
 
+def haiku_nets(cfg) -> dict | None:
+    """{torch net: haiku prefix} of an ablation model; None for the
+    mixture of experts, whose tree is nested by manager and group."""
+    return getattr(MODELS[cfg.model], "HAIKU_NETS", None)
+
+
 def from_haiku(params: dict, state: dict, cfg) -> dict:
-    """haiku (params, state) of `ExpertsNormEst` -> torch state dict."""
+    """haiku (params, state) of `cfg.model` -> torch state dict."""
+    nets = haiku_nets(cfg)
+    if nets is not None:
+        sd = {}
+        for net, prefix in nets.items():
+            def strip(tree, prefix=prefix):
+                return {k[len(prefix):]: v for k, v in tree.items() if k.startswith(prefix)}
+            sd.update(module_to_torch(strip(params), strip(state), net_path, f"{net}."))
+        return sd
     sd = module_to_torch(params["manager"], state["manager"], net_path, "manager.")
     for gi, group in enumerate(expert_groups(cfg)):
         gp, gs = params[f"group{gi}"], state[f"group{gi}"]
@@ -109,8 +132,25 @@ def _split(entries: dict) -> tuple[dict, dict]:
     return params, state
 
 
+def _flat_to_haiku(state_dict: dict, nets: dict) -> tuple[dict, dict]:
+    by_net: dict[str, dict] = {}
+    for key, value in state_dict.items():
+        net, rest = key.split(".", 1)
+        path, name = rest.rsplit(".", 1)
+        by_net.setdefault(net, {}).setdefault(path, {})[name] = _to_haiku_leaf(name, value)
+    params, state = {}, {}
+    for net, prefix in nets.items():
+        p, s = _split(by_net[net])
+        params.update({prefix + k: v for k, v in p.items()})
+        state.update({prefix + k: v for k, v in s.items()})
+    return params, state
+
+
 def to_haiku(state_dict: dict, cfg) -> tuple[dict, dict]:
-    """torch state dict of `ExpertsNormEst` -> haiku (params, state)."""
+    """torch state dict of `cfg.model` -> haiku (params, state)."""
+    nets = haiku_nets(cfg)
+    if nets is not None:
+        return _flat_to_haiku(state_dict, nets)
     by_net: dict[str, dict] = {}
     for key, value in state_dict.items():
         if key.startswith("manager."):
@@ -140,24 +180,26 @@ def to_haiku(state_dict: dict, cfg) -> tuple[dict, dict]:
 
 
 def optimizer_state_from_optax(opt_state, model, cfg) -> dict:
-    """optax state of `make_optimizer` (JAX `train_step.py:28-34`) -> the
-    `state` of the torch optimizer's state dict, keyed by the index of each
-    parameter in `model.parameters()`."""
-    inner = opt_state[0]
+    """optax state of `make_optimizer` (JAX `train_step.py:28-34`), as
+    optax objects or as a decoded checkpoint's dicts -> the `state` of the
+    torch optimizer's state dict, keyed by the index of each parameter in
+    `model.parameters()`."""
+    inner = opt_state["0"] if isinstance(opt_state, dict) else opt_state[0]
+    fields = inner if isinstance(inner, dict) else inner._asdict()
     names = [n for n, _ in model.named_parameters()]
 
     def by_name(tree):  # a tree shaped like the haiku params, without state
         return from_haiku(tree, {top: {} for top in tree}, cfg)
 
-    if hasattr(inner, "mu"):
-        mu, nu = by_name(inner.mu), by_name(inner.nu)
-        step = float(np.asarray(inner.count))
+    if "mu" in fields:
+        mu, nu = by_name(fields["mu"]), by_name(fields["nu"])
+        step = float(np.asarray(fields["count"]))
         return {i: {"step": torch.tensor(step), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
                 for i, n in enumerate(names)}
-    if hasattr(inner, "trace"):
-        trace = by_name(inner.trace)
+    if "trace" in fields:
+        trace = by_name(fields["trace"])
         return {i: {"momentum_buffer": trace[n]} for i, n in enumerate(names)}
-    raise ValueError(f"unknown optax state: {type(inner).__name__}")
+    raise ValueError(f"unknown optax state with fields {sorted(fields)}")
 
 
 def optimizer_state_to_optax(optimizer, model, cfg) -> dict:

@@ -1,8 +1,8 @@
 """Analytic synthetic shapes + a PCPNet-protocol benchmark generator.
 
-A copy of `nestinet_tpu/data/synthetic.py` (without the switching-regime
-benchmark, which only the ablation models use), so that the port imports
-nothing of the JAX package.
+A copy of `nestinet_tpu/data/synthetic.py`, the switching-regime benchmark
+that the noise-switching model trains on included, so that the port
+imports nothing of the JAX package.
 
 The canonical quality protocol is PCPNet's: six testsets (clean,
 three white-noise levels, two variable-density resamplings), 5000
@@ -302,3 +302,64 @@ def build_protocol_benchmark(
         sets[ts + ".txt"] = names
     return sets
 
+# ------------------------------------------- switching-regime benchmark
+
+# Noise sigmas straddling the reference's hard-switch threshold
+# (`ms_sw_n_est.py:82`: small-scale branch iff noise_est < 0.015).  The
+# canonical PCPNet levels all sit BELOW 0.015, so on the protocol
+# benchmark above the trained switch routes every sample one way and the
+# mechanism is never observed to fire (QUALITY.md "Why the switching
+# ablation stalls").  This regime puts levels on both sides so a correct
+# noise head must drive traffic through BOTH branches.
+SWITCH_NOISE_LEVELS = (0.0, 0.005, 0.01, 0.02, 0.03)
+
+
+def build_switching_benchmark(
+    root: str,
+    n_points: int = 50_000,
+    n_pidx: int = 5_000,
+    seed: int = 23,
+) -> dict:
+    """Materialize a noise-switching demonstration dataset under `root`.
+
+    Same file/list contract as `build_protocol_benchmark` (the noise
+    trainer reads per-shape sigmas from `<list>_noise_levels.txt`,
+    parity: `pcpnet_dataset.py:223-233`), but every list carries each
+    base shape at all of `SWITCH_NOISE_LEVELS` — three below and two
+    above the 0.015 switch threshold.  Lists written:
+    `trainingset_switching.txt`, `validationset_switching.txt`,
+    `testset_switching.txt` (+ their `_noise_levels.txt`).
+    """
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    sets: dict[str, list] = {}
+
+    def gen(name, salt):
+        import zlib
+
+        key = zlib.crc32(f"sw/{name}/{salt}/{seed}".encode()) & 0x7FFFFFFF
+        r = np.random.RandomState(key)
+        return SHAPE_GENERATORS[name](n_points, r)
+
+    for list_name, bases, salt in (
+        ("trainingset_switching.txt", TRAIN_SHAPES, 1),
+        ("validationset_switching.txt", VAL_SHAPES, 2),
+        ("testset_switching.txt", TEST_SHAPES, 3),
+    ):
+        names, noise_of = [], {}
+        for base in bases:
+            pts, nrm = gen(base, salt)
+            for sigma in SWITCH_NOISE_LEVELS:
+                vname = f"{base}{salt}_sw{int(round(sigma * 1000)):03d}"
+                vpts = add_white_noise(pts, sigma, rng) if sigma else pts
+                _write_shape(root, vname, vpts, nrm, n_pidx, rng)
+                names.append(vname)
+                noise_of[vname] = sigma
+        with open(os.path.join(root, list_name), "w") as f:
+            f.write("\n".join(names) + "\n")
+        with open(
+            os.path.join(root, list_name[:-4] + "_noise_levels.txt"), "w"
+        ) as f:
+            f.write("\n".join(f"{noise_of[n]:.6f}" for n in names) + "\n")
+        sets[list_name] = names
+    return sets

@@ -8,7 +8,8 @@ serves it, routed (`moe_inference="sparse"`, the default, through
 `infer/predict.py::route_sparse`) or dense, in the run's compute dtype or
 the one the call names (`compute_dtype`, `fold_bn`, as in `load_run`).
 It writes the same `.normals`, `.experts` and `.experts_probs` files as
-the host path.
+the host path; a model other than the mixture of experts is served dense
+and writes `.normals` only, as in JAX.
 
 Selection follows the JAX code draw for draw: the host generator is
 `RandomState(seed)`; per shape it draws `perm = rng.permutation(n)` and
@@ -34,7 +35,8 @@ import torch
 from ..core.device import resolve_device, set_f32_numerics
 from ..data.pcpnet import _load_cached
 from ..ops.ball_query import build_grid, extract_patches, window_occupancy_np
-from .predict import check_moe_inference, load_run, serve_grid
+from .predict import (append_outputs, check_moe_inference, is_moe, load_run, route_rows,
+                      serve_grid, serving_stats)
 from .writer import ShapeScatterWriter
 
 _RADIUS_SEED_STEP = 0x85EBCA6B
@@ -90,10 +92,10 @@ def predict_shapes_device(
     fold_bn: bool | None = None,
     device: str | torch.device = "cuda",
 ) -> dict:
-    """MoE inference with on-device extraction for every point of every
-    shape in `testset` (or each shape's `.pidx` subset with
-    `sparse_patches`); returns stats, `expert_rows` counting the patches
-    each expert served."""
+    """Inference with on-device extraction for every point of every shape
+    in `testset` (or each shape's `.pidx` subset with `sparse_patches`);
+    returns stats, with the patches each expert or branch served
+    (`serving_stats`)."""
     check_moe_inference(moe_inference)
     dev = resolve_device(device)
     set_f32_numerics()
@@ -112,12 +114,13 @@ def predict_shapes_device(
         ]
     counts = [c.shape[0] if q is None else q.shape[0]
               for c, q in zip(clouds, queries_per_shape)]
-    writer = ShapeScatterWriter(out_dir, shape_names, counts, n_experts=cfg.n_experts)
+    writer = ShapeScatterWriter(out_dir, shape_names, counts,
+                                n_experts=cfg.n_experts if is_moe(model) else None)
     caps = _dataset_window_caps(clouds, cfg.patch_radius)
 
     rng = np.random.RandomState(seed)
     n_patches = n_batches = 0
-    expert_rows = np.zeros(cfg.n_experts, np.int64)
+    rows = route_rows(model, cfg)
     t0 = time.perf_counter()
     with torch.inference_mode():
         for cloud, qidx in zip(clouds, queries_per_shape):
@@ -138,25 +141,20 @@ def predict_shapes_device(
                     (shape_salt + start) & 0xFFFFFFFF, num_point=cfg.num_point, caps=caps,
                 )
                 grid = model.mups_grid(points, n_eff)
-                normals, experts, probs = serve_grid(model, grid, real, moe_inference)
-                experts = experts.cpu().numpy()
-                expert_rows += np.bincount(experts, minlength=cfg.n_experts)
-                writer.append(normals.cpu().numpy(), experts, probs.cpu().numpy())
+                normals, experts, probs = serve_grid(model, grid, real, moe_inference, rows)
+                append_outputs(writer, rows, normals, experts, probs)
                 n_patches += real
                 n_batches += 1
     elapsed = time.perf_counter() - t0
 
     if not writer.done:
         raise RuntimeError("the writer did not receive every shape's patches")
-    return {
+    return serving_stats(model, cfg, rows) | {
         "n_patches": n_patches,
         "n_batches": n_batches,
         "seconds": elapsed,
         "patches_per_sec": n_patches / elapsed if elapsed > 0 else float("inf"),
         "moe_inference": moe_inference,
-        "compute_dtype": cfg.compute_dtype,
-        "fold_bn": model.fold_bn,
-        "expert_rows": expert_rows.tolist(),
         "window_caps": list(caps),
         "shapes": writer.written,
         "output_dir": out_dir,

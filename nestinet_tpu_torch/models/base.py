@@ -3,7 +3,8 @@
 Counterpart of `nestinet_tpu/models/base.py`: the GMM's w/mu/sigma live on
 the model's device as (non-persistent) buffers, `mups_grid` computes the
 statistics grid, and `FCHead` is the reference's FC head (`:120-144`):
-hidden `DenseBN` layers with BN and ReLU, a last layer without BN.  Every
+hidden `DenseBN` layers with BN and ReLU and optional dropout, a last layer
+without BN.  Every
 forward takes `training` and the scheduled `bn_momentum`, as JAX's
 `apply(..., is_training, bn_momentum)`.  A model initializes its weights
 when it is built (`init_params`), from a `torch.Generator`.
@@ -23,7 +24,8 @@ import torch
 from torch import nn
 
 from ..ops.mups import mups
-from ..ops.nn import Backbone, DenseBN
+from ..ops.nn import Backbone, DenseBN, Dropout, dropout
+from .losses import normal_loss
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                   "int8": torch.bfloat16}
@@ -59,40 +61,100 @@ class ModelBase(nn.Module):
         ).to(self.compute_dtype)
 
 
-class FCHead(nn.Module):
-    """`fc1..fc{n}` hidden DenseBN layers (BN + ReLU), then `fc{n+1}`
-    without BN and with an optional final ReLU."""
+FINAL_ACTIVATIONS = (None, "relu")
 
-    def __init__(self, cin: int, hidden, final_units: int, *, final_relu: bool):
+
+class FCHead(nn.Module):
+    """`fc1..fc{n}` hidden DenseBN layers (BN + ReLU), each followed in
+    training by dropout at `dropout_rate` (JAX `fc_head`, `base.py:120-145`),
+    then `fc{n+1}` without BN and with the named `final_activation` (None
+    or "relu").  `final_init` = (stddev, bias) initializes the last layer
+    with haiku's TruncatedNormal(stddev) (cut at 2 standard deviations)
+    and a constant bias, instead of xavier and zero."""
+
+    def __init__(self, cin: int, hidden, final_units: int, *, final_activation=None,
+                 dropout_rate: float = 0.0, final_init: tuple | None = None):
         super().__init__()
+        if final_activation not in FINAL_ACTIVATIONS:
+            raise ValueError(f"final_activation must be one of {FINAL_ACTIVATIONS}")
         self.n_layers = len(hidden) + 1
+        self.dropout_rate = dropout_rate
+        self.final_init = final_init
         c = cin
         for i, units in enumerate(hidden):
             self.add_module(f"fc{i + 1}", DenseBN(c, units, bn=True))
             c = units
-        self.add_module(
-            f"fc{self.n_layers}", DenseBN(c, final_units, bn=False, relu=final_relu)
-        )
+        self.add_module(f"fc{self.n_layers}",
+                        DenseBN(c, final_units, bn=False, relu=final_activation == "relu"))
 
-    def forward(self, x: torch.Tensor, training: bool = False, bn_momentum=None) -> torch.Tensor:
-        for i in range(self.n_layers):
+    def forward(self, x: torch.Tensor, training: bool = False, bn_momentum=None,
+                dropout_masks: Dropout | None = None) -> torch.Tensor:
+        for i in range(self.n_layers - 1):
             x = getattr(self, f"fc{i + 1}")(x, training, bn_momentum)
-        return x
+            if self.dropout_rate > 0.0:
+                x = dropout(x, self.dropout_rate, training, dropout_masks)
+        return getattr(self, f"fc{self.n_layers}")(x, training, bn_momentum)
+
+    @torch.no_grad()
+    def init_final_(self, generator: torch.Generator) -> None:
+        stddev, bias = self.final_init
+        last = getattr(self, f"fc{self.n_layers}").linear
+        torch.nn.init.trunc_normal_(last.w, 0.0, stddev, -2.0 * stddev, 2.0 * stddev,
+                                    generator=generator)
+        last.b.fill_(bias)
 
 
 class ConvNet(nn.Module):
-    """A backbone followed by an FC head, on an NCDHW grid."""
+    """A backbone followed by an FC head, on an NCDHW grid; `head` takes
+    FCHead's keyword arguments."""
 
-    def __init__(self, spec, cin: int, resolution: int, hidden, final_units: int,
-                 *, final_relu: bool):
+    def __init__(self, spec, cin: int, resolution: int, hidden, final_units: int, **head):
         super().__init__()
         self.backbone = Backbone(spec, cin, resolution)
-        self.head = FCHead(
-            self.backbone.out_features, hidden, final_units, final_relu=final_relu
-        )
+        self.head = FCHead(self.backbone.out_features, hidden, final_units, **head)
 
-    def forward(self, x: torch.Tensor, training: bool = False, bn_momentum=None) -> torch.Tensor:
-        return self.head(self.backbone(x, training, bn_momentum), training, bn_momentum)
+    def forward(self, x: torch.Tensor, training: bool = False, bn_momentum=None,
+                dropout_masks: Dropout | None = None) -> torch.Tensor:
+        return self.head(self.backbone(x, training, bn_momentum), training, bn_momentum,
+                         dropout_masks)
+
+
+class SingleNetNormEst(ModelBase):
+    """One ConvNet on the whole [B, r, r, r, 20 * n_scales] grid: the
+    backbone `spec`, then FC 1024/256/128 with dropout at rate 0.3 (the
+    reference's keep_prob 0.7) and 3 linear outputs, returned in float32
+    (JAX `models/ss.py`, `models/ms.py`).  The haiku tree has no prefix:
+    `incep{i}/...` and `fc{i}/...` are `net.backbone.*` and `net.head.*`."""
+
+    DROPOUT_RATE = 0.3
+    HAIKU_NETS = {"net": ""}  # {torch net: haiku prefix} (convert.py)
+
+    def __init__(self, cfg, gmm, spec, generator: torch.Generator | None = None):
+        super().__init__(cfg, gmm)
+        self.net = ConvNet(spec, 20 * cfg.n_scales, self.resolution, (1024, 256, 128), 3,
+                           dropout_rate=self.DROPOUT_RATE)
+        if generator is None:
+            generator = torch.Generator().manual_seed(cfg.seed)
+        init_params(self, generator)
+
+    def forward_grid(self, grid: torch.Tensor, training: bool = False, bn_momentum=None,
+                     dropout_masks: Dropout | None = None) -> dict:
+        n_est = self.net(grid.permute(0, 4, 1, 2, 3), training, bn_momentum, dropout_masks)
+        return {"n_pred": n_est.to(torch.float32)}
+
+    def forward(self, points: torch.Tensor, n_eff: torch.Tensor, training: bool = False,
+                bn_momentum=None, dropout_masks: Dropout | None = None) -> dict:
+        return self.forward_grid(self.mups_grid(points, n_eff), training, bn_momentum,
+                                 dropout_masks)
+
+    def loss(self, outputs: dict, batch: dict):
+        """(scalar loss, {"cos_ang": [B]}) against batch["normals"]."""
+        loss, cos_ang = normal_loss(outputs["n_pred"], batch["normals"], self.cfg.loss_type)
+        return loss, {"cos_ang": cos_ang}
+
+    @staticmethod
+    def predict_normals(outputs: dict) -> torch.Tensor:
+        return outputs["n_pred"]
 
 
 @torch.no_grad()
@@ -111,3 +173,6 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
             p.uniform_(-limit, limit, generator=generator)
         elif leaf == "b":
             p.zero_()
+    for m in module.modules():
+        if isinstance(m, FCHead) and m.final_init is not None:
+            m.init_final_(generator)

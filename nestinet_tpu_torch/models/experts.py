@@ -89,7 +89,7 @@ class ExpertsNormEst(ModelBase):
             manager_spec = backbones.CONV_NET_8G if res == 8 else backbones.CONV_NET_3G
         self.manager = ConvNet(
             manager_spec, 20 * cfg.n_scales, res, (1024, 256, 128), self.n_experts,
-            final_relu=True,  # ReLU before the softmax
+            final_activation="relu",  # ReLU before the softmax
         )
         experts = [None] * self.n_experts
         self.slices = [None] * self.n_experts
@@ -102,7 +102,7 @@ class ExpertsNormEst(ModelBase):
                 spec = backbones.CONV_NET_3G  # 3^3 experts ignore the divider
             for i, start in zip(g.indices, g.starts):
                 experts[i] = ConvNet(
-                    spec, g.channels, res, (512, 128, 64), 3, final_relu=False
+                    spec, g.channels, res, (512, 128, 64), 3
                 )
                 self.slices[i] = (start, start + g.channels)
         self.experts = torch.nn.ModuleList(experts)
@@ -136,16 +136,19 @@ class ExpertsNormEst(ModelBase):
         return {"n_pred": n_pred, "experts_prob": probs}
 
     def forward(self, points: torch.Tensor, n_eff: torch.Tensor, training: bool = False,
-                bn_momentum=None) -> dict:
+                bn_momentum=None, dropout_masks=None) -> dict:
         """Dense MoE on a batch of patches; in training every BatchNorm
         normalizes with batch moments and updates its EMA with
-        `bn_momentum` (JAX `experts.py:148-175`)."""
+        `bn_momentum` (JAX `experts.py:148-175`).  The model has no
+        dropout."""
         return self.forward_grid(self.mups_grid(points, n_eff), training, bn_momentum)
 
-    def loss(self, outputs: dict, normals: torch.Tensor):
-        """(scalar loss, cos_ang [E, B]) against the normals [B, 3]."""
-        return moe_loss(outputs["n_pred"], normals, outputs["experts_prob"],
-                        loss_type=self.cfg.loss_type, expert_type=self.cfg.expert_loss_type)
+    def loss(self, outputs: dict, batch: dict):
+        """(scalar loss, {"cos_ang": [E, B]}) against batch["normals"] [B, 3]."""
+        loss, cos_ang = moe_loss(outputs["n_pred"], batch["normals"], outputs["experts_prob"],
+                                 loss_type=self.cfg.loss_type,
+                                 expert_type=self.cfg.expert_loss_type)
+        return loss, {"cos_ang": cos_ang}
 
     @staticmethod
     def predict_normals(outputs: dict) -> torch.Tensor:

@@ -11,7 +11,8 @@ Mixture-of-experts aggregation (`experts_n_est.py:141-150`):
   * 'gaussian': -log sum_i prob_i * N(diff_i), averaged over the batch.
 
 Every norm is eps-guarded, sqrt(sum + 1e-12), as in JAX: a zero prediction
-keeps a finite gradient.  `switching_loss` comes with the ablation models.
+keeps a finite gradient.  `switching_loss` is the noise-switching model's
+noise MSE plus its angular loss (`:89`).
 """
 
 from __future__ import annotations
@@ -85,3 +86,12 @@ def moe_loss(n_pred: torch.Tensor, n_gt: torch.Tensor, experts_prob: torch.Tenso
     else:
         raise ValueError(f"unknown expert loss type: {expert_type}")
     return loss, cos_ang
+
+
+def switching_loss(noise_pred: torch.Tensor, noise_gt: torch.Tensor, n_pred: torch.Tensor,
+                   n_gt: torch.Tensor, loss_type: str = "cos"):
+    """Noise MSE + angular loss (parity: `ms_sw_n_est.py:93-135`); returns
+    (loss, cos_ang [B], noise_loss)."""
+    noise_loss = torch.mean(torch.square(noise_pred - noise_gt))
+    angle_loss, cos_ang = normal_loss(n_pred, n_gt, loss_type)
+    return noise_loss + angle_loss, cos_ang, noise_loss

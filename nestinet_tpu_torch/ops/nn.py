@@ -347,6 +347,39 @@ class Backbone(nn.Module):
         return x if x_amax is None else ActQ(x, x_amax)
 
 
+class Dropout:
+    """Where the dropout layers of one forward pass take their keep masks
+    (JAX `ops/nn.py:496-499`, haiku's `hk.dropout`): each mask is
+    U[0, 1) < 1 - rate in float32, drawn from `generator` (None: torch's
+    default generator of the input's device), or, when `masks` is given,
+    the next of those bool tensors in call order (a test replays JAX's
+    masks this way)."""
+
+    def __init__(self, generator: torch.Generator | None = None, masks=None):
+        self.generator = generator
+        self.masks = None if masks is None else list(masks)
+
+    def __call__(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        keep_rate = 1.0 - rate
+        if self.masks is not None:
+            keep = self.masks.pop(0).to(device=x.device, dtype=torch.bool)
+        else:
+            keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_rate
+        # haiku's keep * x / keep_rate; the divisor is a 0-d tensor, as a
+        # Python float becomes a multiply by its reciprocal on CUDA
+        return keep * x / torch.tensor(keep_rate, dtype=x.dtype, device=x.device)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool, source: Dropout | None = None):
+    """Drop each element with probability `rate` and scale the rest by
+    1 / (1 - rate) in training; the identity in eval or at rate 0."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    if not training or rate == 0.0:
+        return x
+    return (source if source is not None else Dropout())(x, rate)
+
+
 def l2_weight_penalty(module: nn.Module) -> torch.Tensor:
     """Sum of 0.5 * ||w||^2 over the conv and linear kernels in float32;
     biases and BatchNorm parameters are left out (JAX `ops/nn.py:502-514`,

@@ -56,7 +56,7 @@ def test_full_width_manager_matches_jax(manager, mode):
         want, _ = f.apply(params, state, None, jnp.asarray(x).astype(dtype))
     want = to_f32(want)
 
-    net = ConvNet(jax_backbones.CONV_NET_8G, 60, 8, (1024, 256, 128), 7, final_relu=True)
+    net = ConvNet(jax_backbones.CONV_NET_8G, 60, 8, (1024, 256, 128), 7, final_activation="relu")
     net.load_state_dict(convert.module_to_torch(params, state, convert.net_path))
     net.eval()
     if mode == "int8":

@@ -28,6 +28,7 @@ from nestinet_tpu_torch.data.loader import get_data_loader
 from nestinet_tpu_torch.eval.evaluate import evaluate_dataset
 
 from .fixtures import make_plane, make_sphere, write_pcpnet_dataset
+from .test_torch_native_race import load_jax_native
 
 
 def _files(root):
@@ -94,6 +95,7 @@ def test_rundir_numbers_and_paths_as_the_original(tmp_path):
 @pytest.mark.parametrize("use_native", [True, False])
 def test_loader_yields_the_same_batches(dataset, case, use_native):
     root, name = dataset
+    load_jax_native()
     kwargs = dict(indir=root, batch_size=32, patch_radius=(0.05, 0.1), points_per_patch=24,
                   seed=11, sparse_patches=case == "pidx", workers=2, use_native=use_native)
     if case == "pca_mean":
@@ -112,13 +114,13 @@ def test_loader_yields_the_same_batches(dataset, case, use_native):
 
 
 def test_native_sampler_builds_into_the_port(dataset):
-    if not jax_native.available():
-        assert not native.available()
-        return
+    """The port's library builds into its own build directory and, once
+    JAX's is loaded too, samples exactly what JAX's samples."""
     assert native.available()
     lib = native._LIB
     assert os.path.dirname(lib).endswith(os.path.join("nestinet_tpu_torch", "_build"))
     assert os.path.isfile(lib)
+    assert load_jax_native()
     pts = np.random.RandomState(0).rand(300, 3).astype(np.float32)
     got = native.NativePatchSampler(pts).sample_patches(np.arange(20), (0.2, 0.4), 16, seed=9)
     want = jax_native.NativePatchSampler(pts).sample_patches(np.arange(20), (0.2, 0.4), 16,

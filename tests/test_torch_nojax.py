@@ -1,13 +1,16 @@
-"""The port imports no JAX, haiku or flax, and nothing of the JAX package
-`nestinet_tpu`, directly or through anything it imports: the GPU machine it
-serves on has none of the former, and the reference must not change the
-port behind its back.
+"""The port imports no JAX, jaxlib, haiku, flax, optax or msgpack, and
+nothing of the JAX package `nestinet_tpu`, directly or through anything it
+imports: the GPU machine it serves on has none of the former, and the
+reference must not change the port behind its back.
 
 A subprocess blocks those packages and `nestinet_tpu` in `sys.modules`
 before anything else, imports every module of the port, and runs a tiny CPU
 forward, dense and routed on device-extracted patches, then the same model
-folded and in int8, then one train and one eval step.  An AST scan of every file of the port and of
-`chip_smoke.py` fails on any import of `nestinet_tpu` or its submodules,
+folded and in int8, then one train and one eval step; then a full-depth
+single-scale model's forward, and the committed JAX run dir
+(`nestinet_tpu_torch/testdata/jax_run_moe3/`) read by the flax-free reader
+and served.  An AST scan of every file of the port and of `chip_smoke.py`
+fails on any import of those packages, `nestinet_tpu` or their submodules,
 including the imports inside functions that the subprocess never reaches.
 """
 
@@ -25,7 +28,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent(
     """
     import sys
-    for name in ("jax", "jaxlib", "haiku", "flax", "optax", "msgpack", "nestinet_tpu"):
+    BLOCKED = ("jax", "jaxlib", "haiku", "flax", "optax", "msgpack", "nestinet_tpu")
+    for name in BLOCKED:
         sys.modules[name] = None  # any import of them now raises ImportError
 
     import importlib
@@ -33,6 +37,7 @@ SCRIPT = textwrap.dedent(
         "nestinet_tpu_torch",
         "nestinet_tpu_torch.core.device",
         "nestinet_tpu_torch.core.checkpoint",
+        "nestinet_tpu_torch.core.flax_msgpack",
         "nestinet_tpu_torch.core.config",
         "nestinet_tpu_torch.core.profiling",
         "nestinet_tpu_torch.core.rundir",
@@ -60,6 +65,9 @@ SCRIPT = textwrap.dedent(
         "nestinet_tpu_torch.models.backbones",
         "nestinet_tpu_torch.models.base",
         "nestinet_tpu_torch.models.experts",
+        "nestinet_tpu_torch.models.ss",
+        "nestinet_tpu_torch.models.ms",
+        "nestinet_tpu_torch.models.switching",
         "nestinet_tpu_torch.models.losses",
         "nestinet_tpu_torch.train.schedules",
         "nestinet_tpu_torch.train.train_step",
@@ -153,8 +161,23 @@ SCRIPT = textwrap.dedent(
     assert torch.isfinite(loss) and not torch.equal(before, model.manager.head.fc1.linear.w)
     eval_loss, cos = make_eval_step(model)(batch)
     assert torch.isfinite(eval_loss) and cos.shape == (4,)
-    assert all(sys.modules.get(n) is None
-               for n in ("jax", "haiku", "flax", "nestinet_tpu"))
+
+    ss = build_model(Config(model="ss_norm_est", num_point=8, num_gaussians=3,
+                            patch_radius=(0.05,)), get_3d_grid_gmm([3, 3, 3], variance=1.0 / 9))
+    with torch.inference_mode():
+        out = ss.eval()(points[:, :8], n_eff[:, :1])
+    assert out["n_pred"].shape == (4, 3)
+
+    import shutil
+    from nestinet_tpu_torch.infer.device_pipeline import predict_shapes_device
+    with tempfile.TemporaryDirectory() as tmp:
+        fixture = os.path.join("nestinet_tpu_torch", "testdata", "jax_run_moe3")
+        shutil.copytree(os.path.join(fixture, "run"), os.path.join(tmp, "run"))
+        shutil.copytree(os.path.join(fixture, "data"), os.path.join(tmp, "data"))
+        stats = predict_shapes_device(os.path.join(tmp, "run"), data_path=os.path.join(tmp, "data"),
+                                      batch_size=64, compute_dtype="float32", device="cpu")
+        assert stats["n_patches"] == 400
+    assert all(sys.modules.get(n) is None for n in BLOCKED)
     print("NOJAX_OK")
     """
 )
@@ -175,9 +198,13 @@ def _port_files():
     return files + [os.path.join(REPO, "chip_smoke.py")]
 
 
+BLOCKED = ("nestinet_tpu", "jax", "jaxlib", "haiku", "flax", "optax", "msgpack")
+
+
 def _jax_package_imports(path):
-    """(line, module) of every import of `nestinet_tpu` or a submodule of
-    it in the file, at any depth (inside functions too)."""
+    """(line, module) of every import of `nestinet_tpu`, of JAX and its
+    libraries (`BLOCKED`) or of a submodule of one in the file, at any
+    depth (inside functions too)."""
     tree = ast.parse(open(path).read(), filename=path)
     found = []
     for node in ast.walk(tree):
@@ -188,7 +215,7 @@ def _jax_package_imports(path):
         else:
             continue
         found += [(node.lineno, n) for n in names
-                  if n == "nestinet_tpu" or n.startswith("nestinet_tpu.")]
+                  if any(n == b or n.startswith(b + ".") for b in BLOCKED)]
     return found
 
 
@@ -204,8 +231,16 @@ def test_port_files_import_nothing_of_the_jax_package():
     "import nestinet_tpu.core.config as c",
     "from nestinet_tpu.data import loader",
     "def f():\n    from nestinet_tpu.eval.evaluate import evaluate_dataset",
+    "import jax",
+    "import jax.numpy as jnp",
+    "def f():\n    import jaxlib",
+    "import haiku as hk",
+    "from flax import serialization",
+    "def f():\n    from flax.serialization import msgpack_restore",
+    "import optax",
+    "def f():\n    import msgpack",
 ])
 def test_the_scan_finds_an_import_of_the_jax_package(tmp_path, source):
     path = tmp_path / "mod.py"
-    path.write_text(source + "\nimport nestinet_tpu_torch\n")
+    path.write_text(source + "\nimport nestinet_tpu_torch\nimport jaxtyping\nimport flaxen\n")
     assert len(_jax_package_imports(str(path))) == 1

@@ -31,6 +31,7 @@ from nestinet_tpu_torch.core import checkpoint
 from nestinet_tpu_torch.infer.predict import predict_shapes
 
 from .test_torch_experts import random_bn, tiny_cfg
+from .test_torch_native_race import load_jax_native
 
 torch.set_num_threads(1)
 
@@ -97,7 +98,9 @@ def build_run(root: str, data: str) -> str:
 
 
 def build_data(root: str) -> str:
-    """The synthetic protocol testset: 6 shapes x 300 points, 100 pidx."""
+    """The synthetic protocol testset: 6 shapes x 300 points, 100 pidx;
+    both packages' native samplers are loaded, so their host loaders agree."""
+    load_jax_native()
     data = os.path.join(root, "data")
     build_protocol_benchmark(data, n_points=N_POINTS, n_pidx=100, seed=5)
     return data

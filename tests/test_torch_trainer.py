@@ -33,6 +33,7 @@ from nestinet_tpu_torch.ops.gmm import get_3d_grid_gmm
 from nestinet_tpu_torch.train.trainer import Trainer
 
 from .fixtures import make_plane, make_sphere, write_pcpnet_dataset
+from .test_torch_native_race import load_jax_native
 
 torch.set_num_threads(1)
 
@@ -64,6 +65,7 @@ LOADER_CASES = {
 @pytest.mark.parametrize("case", sorted(LOADER_CASES))
 @pytest.mark.parametrize("use_native", [True, False])
 def test_training_loader_yields_the_jax_loaders_batches(data, case, use_native):
+    load_jax_native()
     kwargs = dict(indir=data, batch_size=12, patch_radius=(0.1, 0.2), points_per_patch=20,
                   seed=21, outputs=("unoriented_normals", "noise"), patches_per_shape=25,
                   workers=2, drop_last=True, use_native=use_native)
