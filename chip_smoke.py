@@ -83,9 +83,14 @@ and prints no result):
      (10 in float32, 20 in bfloat16) below the first step's; (c)
      `python -m nestinet_tpu_torch.cli.train` on the synthetic training and
      validation sets (18 and 6 shapes, 64 patches each, B = 256: 4 steps an
-     epoch) for 2 epochs, then `--max_epoch 3 --resume 1` in place, then
-     `python -m nestinet_tpu_torch.cli.test --extraction=device` serves the
-     run's best checkpoint on two test shapes: finite normals and RMS;
+     epoch) for 2 epochs with `--profile_epoch 1`, then `--max_epoch 3
+     --resume 1` in place, then `python -m nestinet_tpu_torch.cli.test
+     --extraction=device` serves the run's best checkpoint on two test
+     shapes: finite normals and RMS; the run's TensorBoard events, read with
+     the port's own framing and CRC, hold every numeric scalar of its
+     `metrics.jsonl`, and the trace in `<run>/profile/` names
+     `tdmfv_n_est_kernel` once per train step of epoch 1 (the traced
+     epoch's step times printed beside the untraced ones);
  14. the ablation models (`models/ss.py`, `ms.py`, `switching.py`), each at
      the full width of its JAX definition with 512 points and 8^3
      Gaussians, random weights and BatchNorm state from a seed: the
@@ -110,11 +115,30 @@ and prints no result):
      dir that the JAX package wrote (`nestinet_tpu_torch/testdata/
      jax_run_moe3/`, read by the flax-free msgpack reader) on the card in
      float32: normals within atol 1e-4 of the ones JAX served on the CPU.
+  15. the scan and the CLIs, on phase 7's run dir (float32): (a) a
+     240 x 320 depth frame made from the seed (a floor, a wall and a sphere
+     ray-cast with ScanNet's depth intrinsics halved, millimetres, about 10%
+     holes, a pose with a rotation and a translation; about 69,000 points)
+     served whole by `infer/scan.py::predict_scan` with the launch counts at
+     0 (one MuPS launch a batch, host extraction, routed, B = 256): as many
+     points as non-zero pixels, finite normals, the normal image non-zero
+     exactly at the projected pixels and unit there; the time split
+     (depth->xyz, staging write, serving with patches/s and loader wait,
+     projection); then `python -m nestinet_tpu_torch.cli.scan
+     --project_to_image 1` end to end on the frame written as a 16-bit PNG,
+     held against the in-process outputs; (b) `cli.synth` against
+     `build_protocol_benchmark` file for file, `cli.test_all` over two
+     one-shape test lists (its `main` in process, launch counts at 0: one
+     MuPS launch a batch) and `cli.evaluate --expert_statistics 1` of its
+     results (finite RMS, expert counts equal to the served ids), and the
+     MuPS variants (`tdmfv_classification`, `tdmfv_sym`, `fv`, `tdmfv_seg`)
+     on the card against the CPU at atol 1e-5.
 
-Phases 1-12 ran in about 300 s on an H100 (a quarter of its 1,200 s
-limit), so the only cuts of depth are host-dense's, which serves two of the
-six shapes, and phase 13's and 14's: a few steps an epoch, and cli.test on
-two shapes.
+The whole script ran in about 890 s on an H100 (phases 1-12 about 300 s,
+phase 15 about 250 s, of its 1,200 s limit), so the only cuts of depth
+are host-dense's, which serves two of the six shapes, and phase 13's and
+14's: a few steps an epoch, and cli.test on two shapes.  The scan's frame
+is not cut: it is ScanNet's halved.
 
 Each serving path and the kernels' entry point run with the launch counts
 set to 0 just before and read just after; a kernel of the path that was
@@ -180,6 +204,10 @@ SWITCH_POINTS = 2000  # points per shape of the switching benchmark
 # 30 training and 10 validation shapes: 3 steps of 256 an epoch, 1 validation batch
 SWITCH_PATCHES_PER_SHAPE = 32
 SWITCH_GAP = 1e-5  # noise estimates this close to 0.015 may take either branch
+# phase 15, the scan and the CLIs
+SCAN_H, SCAN_W = 240, 320  # ScanNet's 480 x 640 depth frame halved
+SCAN_F = 577.870605 / 2  # ScanNet's depth focal length (pixels), halved
+SYNTH_POINTS = 1000  # points per shape of cli.synth's set
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -1108,6 +1136,334 @@ def check_trained_run(data, run):
             "test_seconds": secs}
 
 
+def check_tb_and_trace(run):
+    """Phase 13c: the run's TensorBoard events (`<run>/tb/`, read with the
+    port's own framing and CRC) hold every numeric scalar of its
+    `metrics.jsonl` under `<kind>/<key>` at the record's step, and the
+    trace of epoch 1 (`<run>/profile/`) names MuPS kernel 1 once per train
+    step of that epoch; prints the traced epoch's step times beside the
+    untraced ones."""
+    import json as _json
+
+    import numpy as np
+
+    from nestinet_tpu_torch.core.tb import read_scalars
+
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        metrics = [_json.loads(line) for line in f]
+    want = sorted(
+        (f"{m['kind']}/{k}", int(m["step"]), float(np.float32(v)))
+        for m in metrics for k, v in m.items()
+        if k not in ("kind", "step", "time") and isinstance(v, (int, float))
+        and not isinstance(v, bool))
+    got = sorted(read_scalars(os.path.join(run, "tb")))
+    print(f"tensorboard: {len(got)} scalar records in "
+          f"{len(os.listdir(os.path.join(run, 'tb')))} event files; metrics.jsonl has "
+          f"{len(want)} numeric scalars", flush=True)
+    if got != want:
+        fail(f"the TensorBoard events differ from metrics.jsonl: "
+             f"{sorted(set(got) ^ set(want))[:5]}")
+    traces = sorted(os.listdir(os.path.join(run, "profile")))
+    if len(traces) != 1:
+        fail(f"profile/ holds {traces}, not one trace")
+    path = os.path.join(run, "profile", traces[0])
+    with open(path) as f:
+        events = _json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    mups = [e for e in kernels if "tdmfv_n_est_kernel" in e.get("name", "")]
+    train = {m["epoch"]: m for m in metrics if m["kind"] == "train"}
+    steps = train[1]["step"] - train[0]["step"]
+    print(f"trace of epoch 1: {os.path.getsize(path) / 1e6:.1f} MB, {len(events)} events, "
+          f"{len(kernels)} CUDA kernel events, {len(mups)} of tdmfv_n_est_kernel for "
+          f"{steps} train steps", flush=True)
+    if len(mups) != steps:
+        fail(f"the trace names tdmfv_n_est_kernel {len(mups)} times for {steps} steps")
+    for epoch, m in sorted(train.items()):
+        print(f"time: epoch {epoch} ({'traced' if epoch == 1 else 'untraced'}"
+              f"{', resumed process' if epoch == 2 else ''}): {m['step_steps']} steps, "
+              f"{m['step_total_s']:.3f} s, median step {m['step_p50_ms']:.1f} ms", flush=True)
+    return {"tb_scalars": len(got), "trace_mb": os.path.getsize(path) / 1e6,
+            "trace_kernel_events": len(kernels), "trace_mups_kernel_events": len(mups),
+            "epoch_step_p50_ms": {e: m["step_p50_ms"] for e, m in train.items()},
+            "epoch_step_total_s": {e: m["step_total_s"] for e, m in train.items()}}
+
+
+# ---------------------------------------------------------------- phase 15
+
+def scan_frame(seed: int):
+    """Phase 15a's depth frame: a floor, a wall and a sphere ray-cast from
+    a camera with ScanNet's depth intrinsics halved, in millimetres (uint16)
+    with about 10% holes; and a camera-to-world pose with a rotation and a
+    translation.  Rays follow `depth_to_xyz`'s 1-based pixels: pixel (x, y)
+    looks along K^-1 (x + 1, y + 1, 1), and its depth is the hit's z."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    fx = fy = SCAN_F
+    cx, cy = (SCAN_W - 1) / 2, (SCAN_H - 1) / 2
+    intrinsic = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+    yy, xx = np.mgrid[:SCAN_H, :SCAN_W]
+    rx, ry = (xx + 1 - cx) / fx, (yy + 1 - cy) / fy  # ray (rx, ry, 1)
+    t = np.full((SCAN_H, SCAN_W), 3.5)  # the wall, z = 3.5 m
+    floor = np.where(ry > 0, 1.0 / np.maximum(ry, 1e-9), np.inf)  # y = 1 m (y is down)
+    t = np.minimum(t, floor)
+    c, radius = np.array([0.25, 0.35, 2.2]), 0.5
+    a = rx * rx + ry * ry + 1.0
+    b = rx * c[0] + ry * c[1] + c[2]
+    disc = b * b - a * (c @ c - radius * radius)
+    hit = (b - np.sqrt(np.maximum(disc, 0.0))) / a
+    t = np.where((disc > 0) & (hit > 0), np.minimum(t, hit), t)
+    depth = np.round(t * 1000 + rng.normal(0, 2, t.shape)).astype(np.uint16)
+    depth[rng.rand(SCAN_H, SCAN_W) < 0.1] = 0
+    ang = np.deg2rad([-20.0, 10.0])
+    rot_x = np.array([[1, 0, 0], [0, np.cos(ang[0]), -np.sin(ang[0])],
+                      [0, np.sin(ang[0]), np.cos(ang[0])]])
+    rot_z = np.array([[np.cos(ang[1]), -np.sin(ang[1]), 0],
+                      [np.sin(ang[1]), np.cos(ang[1]), 0], [0, 0, 1]])
+    pose = np.eye(4)
+    pose[:3, :3] = rot_z @ rot_x
+    pose[:3, 3] = [1.5, 0.3, 1.2]
+    return depth, intrinsic, pose
+
+
+def write_png16(path, img):
+    """A 16-bit grayscale PNG (no PIL on the card): even rows Sub-filtered,
+    odd rows Up-filtered, so the reader undoes two filter types."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w = img.shape
+    raw = np.frombuffer(img.astype(">u2").tobytes(), np.uint8).reshape(h, 2 * w)
+    sub = raw.copy()
+    sub[:, 2:] = raw[:, 2:] - raw[:, :-2]
+    up = raw.copy()
+    up[1:] = raw[1:] - raw[:-1]
+    rows = np.where((np.arange(h) % 2 == 0)[:, None], sub, up)
+    kinds = np.where(np.arange(h) % 2 == 0, 1, 2).astype(np.uint8)[:, None]
+    body = zlib.compress(np.concatenate([kinds, rows], axis=1).tobytes())
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0, 0))
+                + chunk(b"IDAT", body) + chunk(b"IEND", b""))
+
+
+def projected_mask(points, intrinsic, pose):
+    """[H, W] the pixels `world_to_image` writes: each point through the
+    inverse pose (translation included) and K, rounded half away from
+    zero, 1-based bounds."""
+    import numpy as np
+
+    cam = np.linalg.inv(pose) @ np.c_[points, np.ones(len(points))].T
+    pix = intrinsic @ cam[:3]
+    x = np.floor(pix[0] / pix[2] + 0.5).astype(np.int64)
+    y = np.floor(pix[1] / pix[2] + 0.5).astype(np.int64)
+    ok = (x > 0) & (y > 0) & (x <= SCAN_W) & (y <= SCAN_H)
+    mask = np.zeros((SCAN_H, SCAN_W), bool)
+    mask[y[ok] - 1, x[ok] - 1] = True
+    return mask
+
+
+def phase15a(tmp, run, kernels, card):
+    """Phase 15a: the scan at full width on phase 7's run dir (float32):
+    `predict_scan` in process with the launch counts at 0 (one MuPS launch
+    a batch), then `python -m nestinet_tpu_torch.cli.scan` end to end on the
+    same frame written as a 16-bit PNG.  Checks the point count, finite
+    normals, unit normals at the image's non-zero pixels, the image's zero
+    mask against the projection, and the CLI's outputs against the
+    in-process ones."""
+    import numpy as np
+
+    from nestinet_tpu_torch.infer.scan import load_depth, predict_scan
+
+    t15 = time.perf_counter()
+    depth, intrinsic, pose = scan_frame(SEED)
+    valid = int(np.count_nonzero(depth))
+    png = os.path.join(tmp, "scan_depth.png")
+    write_png16(png, depth)
+    if not np.array_equal(load_depth(png), depth):
+        fail("load_depth does not read back the 16-bit PNG")
+    out_dir = os.path.join(tmp, "scan_out")
+    stats = serve("scan (predict_scan, host extraction, f32)", lambda: predict_scan(
+        run, depth.astype(np.float64), intrinsic, pose, depth_shift=1000.0,
+        batch_size=DEVICE_BATCH, output_dir=out_dir, project_to_image=True), kernels, card)
+    points, img = stats.pop("points"), stats.pop("normal_image")
+    # all-zero points cannot occur: the translation is dropped and K^-1 (u d, v d, d)
+    # has z = d > 0, so every non-zero pixel is a point
+    if points.shape != (valid, 3) or stats["n_patches"] != valid:
+        fail(f"scan: {points.shape[0]} points, {stats['n_patches']} patches for {valid} "
+             "non-zero pixels")
+    normals = np.loadtxt(stats["normals_path"])
+    experts = np.loadtxt(os.path.join(out_dir, "scan.experts"))
+    if normals.shape != (valid, 3) or not np.isfinite(normals).all():
+        fail(f"scan.normals: shape {normals.shape} or non-finite values")
+    if experts.min() < 0 or experts.max() >= N_EXPERTS:
+        fail("scan.experts: ids out of range")
+    mask = np.any(img != 0, axis=-1)
+    unit = np.abs(np.linalg.norm(img[mask], axis=-1) - 1.0).max()
+    if img.shape != (SCAN_H, SCAN_W, 3) or not np.array_equal(mask, projected_mask(
+            points, intrinsic, pose)) or not unit <= 1e-6:
+        fail(f"scan image: shape {img.shape}, mask differs from the projection or normals "
+             f"off unit length by {unit}")
+    st = stats["stage_seconds"]
+    print(f"scan: {SCAN_H}x{SCAN_W} frame, {valid} points ({valid / depth.size:.3f} of the "
+          f"pixels), image {int(mask.sum())} pixels set; time depth->xyz "
+          f"{st['depth_to_xyz']:.3f} s, staging write {st['staging']:.3f} s, serving "
+          f"{st['serving']:.2f} s ({stats['patches_per_sec']:.1f} patches/s, loader wait "
+          f"{stats['loader_wait_seconds']:.2f} s, peak {stats['peak_memory_gb']:.2f} GB), "
+          f"projection {st['projection']:.3f} s [{card}]", flush=True)
+
+    np.savetxt(os.path.join(tmp, "scan_intrinsic.txt"), intrinsic)
+    np.savetxt(os.path.join(tmp, "scan_pose.txt"), pose)
+    cli_dir = os.path.join(tmp, "scan_cli")
+    secs = run_module("nestinet_tpu_torch.cli.scan", "--results_path", run, "--depth", png,
+                      "--intrinsic", os.path.join(tmp, "scan_intrinsic.txt"), "--pose",
+                      os.path.join(tmp, "scan_pose.txt"), "--depth_shift", "1000",
+                      "--batch_size", str(DEVICE_BATCH), "--output_dir", cli_dir,
+                      "--project_to_image", "1")
+    cli_normals = np.loadtxt(os.path.join(cli_dir, "scan.normals"))
+    cli_experts = np.loadtxt(os.path.join(cli_dir, "scan.experts"))
+    cli_img = np.load(os.path.join(cli_dir, "scan_normals_img.npy"))
+    same = cli_experts == experts
+    err = float(np.abs(cli_normals[same] - normals[same]).max())
+    scale = max(1.0, float(np.abs(normals).max()))  # random weights: |n| is not 1
+    print(f"cli.scan: {secs:.1f} s end to end; against predict_scan: experts equal on "
+          f"{same.mean():.5f}, normals max abs diff {err:.3e} where they are (max |n| "
+          f"{scale:.3g})", flush=True)
+    if cli_normals.shape != normals.shape or same.mean() < 0.999 or not (
+            err <= NORMALS_ATOL * scale):
+        fail(f"cli.scan differs from predict_scan: experts {same.mean()}, normals {err}")
+    if not np.array_equal(np.any(cli_img != 0, axis=-1), mask):
+        fail("cli.scan's image is non-zero at other pixels than predict_scan's")
+    stats.update(n_points=valid, cli_seconds=secs, cli_experts_equal=float(same.mean()),
+                 cli_normals_max_abs_diff=err, image_pixels=int(mask.sum()))
+    print(f"phase 15a: the phase took {time.perf_counter() - t15:.1f} s", flush=True)
+    return stats
+
+
+def check_mups_variants(dev):
+    """Phase 15b: the four 3DmFV variants on the card against the CPU on
+    the same inputs (4 patches of 512 points, the flagship's 8^3
+    Gaussians): finite, within KERNEL_ATOL."""
+    import torch
+
+    from nestinet_tpu_torch.ops import mups as mups_ops
+    from nestinet_tpu_torch.ops.gmm import get_3d_grid_gmm
+
+    gen = torch.Generator().manual_seed(SEED + 15)
+    points = torch.rand((4, 512, 3), generator=gen) * 1.6 - 0.8
+    gmm = [torch.from_numpy(a) for a in get_3d_grid_gmm([8, 8, 8], variance=0.0156).astuple()]
+    variants = {
+        "tdmfv_classification": lambda *a: mups_ops.tdmfv_classification(*a),
+        **{f"tdmfv_sym_{t}": lambda *a, t=t: mups_ops.tdmfv_sym(*a, sym_type=t)
+           for t in ("max", "min", "ss")},
+        "fv": lambda *a: mups_ops.fv(*a),
+        "fv_unnormalized": lambda *a: mups_ops.fv(*a, normalize=False),
+        "tdmfv_seg": lambda *a: torch.cat([o.reshape(4, -1) for o in mups_ops.tdmfv_seg(*a)], 1),
+    }
+    errs = {}
+    for name, fn in variants.items():
+        cpu = fn(points, *gmm)
+        card_out = fn(points.to(dev), *(g.to(dev) for g in gmm)).cpu()
+        errs[name] = (card_out - cpu).abs().max().item()
+        if not (torch.isfinite(card_out).all() and errs[name] <= KERNEL_ATOL):
+            fail(f"{name} on the card: finite {bool(torch.isfinite(card_out).all())}, "
+                 f"max abs err {errs[name]} against the CPU")
+    print("MuPS variants, card against CPU: " + ", ".join(
+        f"{k} {v:.1e}" for k, v in errs.items()) + f" (atol {KERNEL_ATOL})", flush=True)
+    return errs
+
+
+def phase15b(tmp, data, run, shapes, dev, kernels):
+    """Phase 15b: `cli.synth` against `build_protocol_benchmark` file for
+    file; `cli.test_all` (in process, one MuPS launch a batch) over two
+    one-shape test lists on phase 7's run dir;
+    `cli.evaluate --expert_statistics 1` of its results: finite RMS, the
+    expert counts equal to the served ids; the MuPS variants on the card."""
+    import filecmp
+    import json as _json
+
+    import numpy as np
+
+    from nestinet_tpu_torch.cli import test_all
+    from nestinet_tpu_torch.data.synthetic import build_protocol_benchmark
+    from nestinet_tpu_torch.eval.expert_stats import compute_expert_statistics
+
+    t15 = time.perf_counter()
+    synth = {k: os.path.join(tmp, f"synth_{k}") for k in ("cli", "lib")}
+    args = dict(n_points=SYNTH_POINTS, n_pidx=100, seed=SEED % 1000)
+    synth_s = run_module("nestinet_tpu_torch.cli.synth", "--root", synth["cli"],
+                         *(x for k, v in args.items() for x in (f"--{k}", str(v))))
+    build_protocol_benchmark(synth["lib"], **args)
+    names = sorted(os.listdir(synth["lib"]))
+    _, mismatch, errors = filecmp.cmpfiles(synth["cli"], synth["lib"], names, shallow=False)
+    if sorted(os.listdir(synth["cli"])) != names or mismatch or errors:
+        fail(f"cli.synth differs from build_protocol_benchmark: {mismatch + errors}")
+    print(f"cli.synth: {len(names)} files identical to build_protocol_benchmark's, "
+          f"{synth_s:.1f} s", flush=True)
+
+    lists = []
+    for i, shape in enumerate(shapes[:2]):
+        lists.append(f"scene{i}")
+        with open(os.path.join(data, f"scene{i}.txt"), "w") as f:
+            f.write(shape + "\n")
+    with open(os.path.join(data, "scene_lists.txt"), "w") as f:
+        f.write("\n".join(f"scene{i}.txt" for i in range(2)) + "\n")
+    # in process, so that its launches are counted as the serving paths' are
+    for k in kernels:
+        k.reset_launches()
+    t0 = time.perf_counter()
+    test_all.main(["--results_path", run, "--dataset_path", data, "--testset_list",
+                   "scene_lists.txt", "--dataset_name", "test_all", "--batch_size",
+                   str(DEVICE_BATCH)])
+    test_all_s = time.perf_counter() - t0
+    launches = kernels[0].launches["tdmfv_n_est"]
+    batches = sum(-(-np.loadtxt(os.path.join(data, s + ".xyz")).shape[0] // DEVICE_BATCH)
+                  for s in shapes[:2])
+    if launches != batches:
+        fail(f"cli.test_all: {launches} MuPS launches for {batches} batches")
+    results = os.path.join(run, "test_all_results")
+    eval_s = run_module("nestinet_tpu_torch.cli.evaluate", "--normal_results_path", results,
+                        "--data_path", data, "--dataset_list", *lists,
+                        "--expert_statistics", "1")
+    rms, served = {}, 0
+    for name, shape in zip(lists, shapes):
+        check_outputs(data, results, name, N_EXPERTS)
+        with open(os.path.join(results, "summary", f"{name}_evaluation_results.txt")) as f:
+            line = [x for x in f if x.startswith("RMS not oriented")][0]
+        rms[name] = float(line.split(":")[1])
+        with open(os.path.join(results, "images", "expert_statistics",
+                               f"{name}_expert_statistics.json")) as f:
+            stats = _json.load(f)
+        experts = np.loadtxt(os.path.join(results, shape + ".experts")).astype(int)
+        pidx = np.loadtxt(os.path.join(data, shape + ".pidx")).astype(int)
+        if stats["count"] != np.bincount(experts[pidx], minlength=N_EXPERTS).tolist():
+            fail(f"{name}: expert counts {stats['count']} differ from the served ids")
+        whole = compute_expert_statistics(data, results, name, n_experts=N_EXPERTS,
+                                          use_subset=False, log=lambda *_: None)
+        served += experts.size
+        if sum(whole["count"]) != experts.size:
+            fail(f"{name}: expert counts sum to {sum(whole['count'])}, not the "
+                 f"{experts.size} points served")
+        if not np.isfinite(rms[name]):
+            fail(f"{name}: RMS {rms[name]}")
+    print(f"cli.test_all: two test lists, {served} points served, {launches} MuPS launches "
+          f"(one a batch), {test_all_s:.1f} s; "
+          f"cli.evaluate --expert_statistics 1 {eval_s:.1f} s: RMS " + ", ".join(
+              f"{k} {v:.4f} deg" for k, v in rms.items()) + " (random weights); expert "
+          "counts equal to the served ids", flush=True)
+    errs = check_mups_variants(dev)
+    print(f"phase 15b: the phase took {time.perf_counter() - t15:.1f} s", flush=True)
+    return {"synth_seconds": synth_s, "test_all_seconds": test_all_s, "launches": launches,
+            "evaluate_seconds": eval_s, "rms": rms, "mups_variants_max_abs_err": errs}
+
+
 # ---------------------------------------------------------------- phase 14
 
 
@@ -1667,15 +2023,20 @@ def main(argv=None) -> int:
         train_times = {d: time_train_steps(dev, train_cfg, run_gmm, d, kernel, card)
                        for d in ("float32", "bfloat16")}
         train_run = os.path.join(tmp, "train_run")
-        train_s = train_cli(data, train_run, "--max_epoch", "2")
+        train_s = train_cli(data, train_run, "--max_epoch", "2", "--profile_epoch", "1")
         resume_s = train_cli(data, train_run, "--max_epoch", "3", "--resume", "1")
         trained = check_trained_run(data, train_run)
+        trained.update(check_tb_and_trace(train_run))
         print(f"phase 13: cli.train {train_s:.1f} s (2 epochs), resumed {resume_s:.1f} s (1 "
               f"epoch); the phase took {time.perf_counter() - t13:.1f} s", flush=True)
 
         # ---- 14. the ablation models: serving, training, a JAX run dir ----
         ablations, jax_fixture = phase14(tmp, data, dev, grids, queries, radii, bseed, caps,
                                          run_gmm, kernels, card)
+
+        # ---- 15. the scan, the CLIs, the MuPS variants ----
+        scan = phase15a(tmp, rd.path, kernels, card)
+        tools = phase15b(tmp, data, rd.path, shapes, dev, kernels)
         if "jax" in sys.modules:
             fail("jax was imported")
 
@@ -1696,6 +2057,7 @@ def main(argv=None) -> int:
         "routed_vs_dense_normals_max_abs_err": route_err,
         "batch_normals_max_abs_err": nerr,
         "ablations": ablations, "jax_run_dir_on_card": jax_fixture,
+        "scan": scan, "cli_tools": tools,
     })
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)
@@ -1715,6 +2077,9 @@ def main(argv=None) -> int:
             "launches_ablations": {f"{m} {label}": st["launches"]["tdmfv_n_est"]
                                    for m, a in ablations.items()
                                    for label, st in a["serving"].items()},
+            "launches_scan": scan["launches"]["tdmfv_n_est"],
+            "launches_test_all": tools["launches"],
+            "launches_traced_epoch": trained["trace_mups_kernel_events"],
             "max_abs_err": k1_err,
             "ms": k1_ms[R],
             "plain_ms": plain_ms[R],

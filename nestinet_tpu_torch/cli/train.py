@@ -11,9 +11,12 @@ the last), the best-validation checkpoint `ckpt_torch_best/`, which
 serving prefers, `metrics.jsonl` and `log_train.txt`.  `--resume 1` (the
 default) continues an existing run dir in place from its periodic
 checkpoint, the port's or, in a run dir the JAX trainer wrote, JAX's
-`ckpt/`.  `--data_parallel`/`--expert_parallel` > 1 and
-`--profile_epoch` raise: they are not ported yet.  `--mups_impl` is kept
-for the run config and ignored: the MuPS CUDA kernel runs on the card.
+`ckpt/`.  `--profile_epoch N` traces epoch N's train loop with
+`torch.profiler` into `<run>/profile/`; every epoch's scalars are also
+written as TensorBoard events into `<run>/tb/`.
+`--data_parallel`/`--expert_parallel` > 1 raise: one GPU trains.
+`--mups_impl` is kept for the run config and ignored: the MuPS CUDA
+kernel runs on the card.
 
 Example (the reference's canonical flagship config):
     python -m nestinet_tpu_torch.cli.train --model=experts_n_est \\
@@ -81,7 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_every", type=int, default=10)
     p.add_argument("--resume", type=int, default=1)
     p.add_argument("--profile_epoch", type=int, default=-1,
-                   help="-1 (the default); the device trace is not ported")
+                   help="trace this epoch's train loop (torch.profiler, CPU and "
+                        "CUDA activity) into <run>/profile/; -1 (the default): none")
     p.add_argument("--mups_impl", type=str, default="auto",
                    choices=["auto", "jnp", "pallas"],
                    help="kept in the run config for the JAX package; ignored here")

@@ -1,8 +1,8 @@
 """Run-directory contract.
 
-A copy of the serving part of `nestinet_tpu/core/rundir.py` (no
-metrics log and no TensorBoard writer), so that the port imports nothing
-of the JAX package.
+A copy of `nestinet_tpu/core/rundir.py`, with the port's own TensorBoard
+writer (`core/tb.py`), so that the port imports nothing of the JAX
+package.
 
 Each training run owns a self-contained directory (parity with the
 reference's contract, `train_n_est_w_experts.py:97-125, 354`):
@@ -15,6 +15,8 @@ reference's contract, `train_n_est_w_experts.py:97-125, 354`):
         ckpt_torch_best/  the port's best-validation checkpoint
         log_train.txt     textual training log
         metrics.jsonl     one JSON line of scalars per train / eval epoch
+        tb/               TensorBoard scalar events (the same scalars)
+        profile/          the device trace of `--profile_epoch`
         <dataset>_results/  inference outputs (.normals/.experts/...)
 
 Collision behavior matches the reference: an existing log_dir gets
@@ -28,6 +30,8 @@ import os
 import threading
 import time
 
+from .tb import EventWriter
+
 
 class RunDir:
     def __init__(self, path: str):
@@ -36,6 +40,7 @@ class RunDir:
         os.makedirs(self.ckpt_dir, exist_ok=True)
         self._log_file = None
         self._metrics_file = None
+        self._tb = None
         # the lock serializes the lazy file opens and appends
         self._io_lock = threading.Lock()
 
@@ -102,7 +107,10 @@ class RunDir:
         print(msg, flush=True)
 
     def metrics(self, **scalars) -> None:
-        """Append one JSON line of scalars, with the time (thread-safe)."""
+        """Append one JSON line of scalars, with the time, AND mirror the
+        numeric values to the TensorBoard event file under tags
+        `<kind>/<key>`, stepped by the record's `step` when present
+        (thread-safe)."""
         with self._io_lock:
             if self._metrics_file is None:
                 self._metrics_file = open(
@@ -112,9 +120,16 @@ class RunDir:
             record.update(scalars)
             self._metrics_file.write(json.dumps(record) + "\n")
             self._metrics_file.flush()
+            if self._tb is None:
+                self._tb = EventWriter(os.path.join(self.path, "tb"))
+            self._tb.scalars(
+                str(scalars.get("kind", "")),
+                {k: v for k, v in scalars.items() if k not in ("kind", "step")},
+                int(scalars.get("step", 0)),
+            )
 
     def close(self) -> None:
-        for f in (self._log_file, self._metrics_file):
+        for f in (self._log_file, self._metrics_file, self._tb):
             if f is not None:
                 f.close()
-        self._log_file = self._metrics_file = None
+        self._log_file = self._metrics_file = self._tb = None

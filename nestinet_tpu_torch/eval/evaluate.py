@@ -1,8 +1,9 @@
 """Evaluation harness over predicted `.normals` files.
 
-A copy of `nestinet_tpu/eval/evaluate.py` without its optional
-visualization export (which needs matplotlib and the JAX package's
-`viz/`), so the port scores its own outputs.  Parity with
+A copy of `nestinet_tpu/eval/evaluate.py`, so the port scores its own
+outputs.  Its visualization export (`export=True`) needs matplotlib and
+the JAX package's `viz/`, which are not ported (ROADMAP queue 1, item 6):
+it raises NotImplementedError.  Parity with
 `utils/evaluate.py`: per dataset list, load GT `.xyz/.normals` +
 predicted `.normals` + `.pidx` sparse-eval indices, subset to pidx,
 compute unoriented/oriented RMS and PGP5/PGP10 per shape, and write
@@ -25,9 +26,18 @@ def evaluate_dataset(
     dataset: str,
     *,
     sparse_patches: bool = True,
+    export: bool = False,
+    n_experts: int = 7,
     log=print,
 ) -> dict:
-    """Metric pass over one dataset list."""
+    """Metric pass over one dataset list.  `export=True` raises
+    NotImplementedError (see the module docstring); `n_experts` is used by
+    the export only."""
+    if export:
+        raise NotImplementedError(
+            "the visualization export (plots and renders) needs matplotlib and "
+            "viz/, not ported yet: ROADMAP.md queue 1, item 6 (library leftovers)"
+        )
     list_path = os.path.join(data_path, dataset + ".txt")
     if not os.path.exists(list_path):
         raise FileNotFoundError(
@@ -102,11 +112,14 @@ def evaluate_datasets(
     dataset_list,
     *,
     sparse_patches: bool = True,
+    export: bool = False,
+    n_experts: int = 7,
     log=print,
 ) -> list[dict]:
     return [
         evaluate_dataset(
-            data_path, results_path, d, sparse_patches=sparse_patches, log=log,
+            data_path, results_path, d, sparse_patches=sparse_patches,
+            export=export, n_experts=n_experts, log=log,
         )
         for d in dataset_list
     ]

@@ -15,6 +15,13 @@ zeros; `n_eff == 0` divides by 1; the pdf coefficient is isotropic
 (sigma[:, 0]^3); the order is /eff, then signed sqrt, then L2 over K.
 The sums over points and Gaussians accumulate in float64 (see `_sum`).
 
+The 3DmFV variants that no model of the package calls
+(`tdmfv_classification`, `tdmfv_sym`, `fv`, `tdmfv_seg`,
+`nestinet_tpu/ops/mups.py:214-381`) and the NumPy Fisher-vector helpers
+(`:389-478`) follow at the end: plain tensor functions that autograd
+differentiates (no TPU kernel stands behind them), their sums over
+points and Gaussians taken in float64 as in `tdmfv_n_est_reference`.
+
 Training differentiates with respect to the parameters only: the points
 are constants of the loss, as in JAX's `value_and_grad(loss_fn)(params)`,
 so the backward never runs there.  `BACKWARD_CALLS["plain"]` counts the
@@ -25,6 +32,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .kernels import mups_cuda
@@ -194,3 +202,198 @@ def mups(
         n_eff.reshape(B * n_scales).to(torch.int32).contiguous(),
     )
     return stats_to_grid(rows, B, n_scales, resolution)
+
+
+# ---------------------------------------------------------------------------
+# 3DmFV variants (library functions carried over from 3DmFV-Net; no model
+# calls them).  Points [B, N, D]; w [K]; mu, sigma [K, D].
+# ---------------------------------------------------------------------------
+
+
+def _finalize(d_pi, d_mu, d_sigma, *, flatten: bool, normalize: bool = True):
+    """Shared tail: signed sqrt, per-channel L2 over Gaussians, layout
+    [B, C, K] (flattened to [B, C*K])."""
+    if normalize:
+        d_pi = _l2_normalize(_signed_sqrt(d_pi), dim=1)
+        d_mu = _l2_normalize(_signed_sqrt(d_mu), dim=1)
+        d_sigma = _l2_normalize(_signed_sqrt(d_sigma), dim=1)
+    fv = torch.cat([d_pi, d_mu, d_sigma], dim=-1).transpose(1, 2)
+    if flatten:
+        return fv.reshape(fv.shape[0], -1)
+    return fv
+
+
+def _soft_assign(points, w, mu, sigma):
+    """(w in the points' dtype, scaled offsets [B,N,K,D], soft assignment
+    Q [B,N,K]) under the diagonal GMM's true pdf (per-axis sigmas)."""
+    w, mu, sigma = (a.to(points.dtype) for a in (w, mu, sigma))
+    scaled = (points[:, :, None, :] - mu[None, None]) / sigma[None, None]
+    dist2 = torch.sum(scaled * scaled, dim=-1)
+    coef = 1.0 / (math.pow(2.0 * math.pi, mu.shape[1] / 2.0) * torch.prod(sigma, dim=-1))
+    p = coef[None, None] * torch.exp(-0.5 * dist2)
+    wp = p * w[None, None]
+    q = wp / _sum(wp, dim=-1, keepdim=True)
+    return w, scaled, q
+
+
+def _max_min_sum(x):
+    """[B, N, K, D] -> [B, K, 3D]: max, min and sum over the points."""
+    return torch.cat([torch.amax(x, dim=1), torch.amin(x, dim=1), _sum(x, dim=1)], dim=-1)
+
+
+def tdmfv_classification(points, w, mu, sigma, *, flatten: bool = True):
+    """Classification-flavored 3DmFV (parity: `tf_util.py:578-652`): no
+    padding compensation; the static point count is folded into the
+    derivatives before the max/min/sum reductions.  [B, 20*K] (or
+    [B, 20, K] unflattened)."""
+    B, N, D = points.shape
+    w, scaled, q = _soft_assign(points, w, mu, sigma)
+    sqrt_w = torch.sqrt(w)
+
+    d_pi_all = (q - w[None, None]) / (sqrt_w[None, None] * N)
+    d_pi = torch.stack([torch.amax(d_pi_all, dim=1), _sum(d_pi_all, dim=1)], dim=-1)
+    q4 = q[..., None]
+    d_mu = _max_min_sum(q4 * scaled) / (N * sqrt_w[None, :, None])
+    d_sigma = _max_min_sum(q4 * (scaled * scaled - 1.0)) / (
+        N * torch.sqrt(2.0 * w)[None, :, None])
+    return _finalize(d_pi, d_mu, d_sigma, flatten=flatten)
+
+
+def tdmfv_sym(points, w, mu, sigma, *, sym_type: str = "max", flatten: bool = True):
+    """3DmFV with a single symmetric aggregation ('max' | 'min' | 'ss', the
+    sum of squares): 7 channels per Gaussian (parity: `tf_util.py:756-836`)."""
+    B, N, D = points.shape
+    w, scaled, q = _soft_assign(points, w, mu, sigma)
+    q4 = q[..., None]
+
+    d_pi_all = ((q - w[None, None]) / (torch.sqrt(w)[None, None] * N))[..., None]
+    d_mu_all = q4 * scaled
+    d_sig_all = q4 * (scaled * scaled - 1.0)
+
+    mu_scale = 1.0 / (N * torch.sqrt(w))[None, :, None]
+    sig_scale = 1.0 / (N * torch.sqrt(2.0 * w))[None, :, None]
+    if sym_type == "max":
+        agg = lambda x: torch.amax(x, dim=1)  # noqa: E731
+    elif sym_type == "min":
+        agg = lambda x: torch.amin(x, dim=1)  # noqa: E731
+    elif sym_type == "ss":
+        agg = lambda x: _sum(x * x, dim=1)  # noqa: E731
+    else:
+        raise ValueError(f"unknown sym_type: {sym_type}")
+    return _finalize(agg(d_pi_all), mu_scale * agg(d_mu_all), sig_scale * agg(d_sig_all),
+                     flatten=flatten)
+
+
+def fv(points, w, mu, sigma, *, flatten: bool = True, normalize: bool = True):
+    """Plain (sum-aggregated) Fisher vector: 7 channels per Gaussian
+    (parity: `tf_util.py:839-993`)."""
+    B, N, D = points.shape
+    w, scaled, q = _soft_assign(points, w, mu, sigma)
+    q4 = q[..., None]
+    sqrt_w = torch.sqrt(w)
+
+    d_pi = _sum((q - w[None, None]) / sqrt_w[None, None], dim=1)[..., None]
+    d_mu = _sum(q4 * scaled, dim=1) / sqrt_w[None, :, None]
+    d_sigma = _sum(q4 * (scaled * scaled - 1.0), dim=1) / torch.sqrt(2.0 * w)[None, :, None]
+    return _finalize(d_pi / N, d_mu / N, d_sigma / N, flatten=flatten, normalize=normalize)
+
+
+def tdmfv_seg(points, w, mu, sigma, *, flatten: bool = True):
+    """Segmentation-flavored 3DmFV (parity: `tf_util.py:996-1080`): the
+    20-channel global statistics and the unaggregated per-point 7-channel
+    features.  Returns (fv [B, 20*K], fv_per_point [B, N, 7*K])."""
+    B, N, D = points.shape
+    w, scaled, q = _soft_assign(points, w, mu, sigma)
+    q4 = q[..., None]
+    inv_n = 1.0 / N
+
+    d_pi_all = (inv_n * (q - w[None, None]) / torch.sqrt(w)[None, None])[..., None]
+    d_mu_all = q4 * scaled
+    d_sig_all = q4 * (scaled * scaled - 1.0)
+
+    d_pi = torch.cat([torch.amax(d_pi_all, dim=1), _sum(d_pi_all, dim=1)], dim=-1)
+    d_mu = inv_n / torch.sqrt(w)[None, :, None] * _max_min_sum(d_mu_all)
+    d_sigma = inv_n / torch.sqrt(2.0 * w)[None, :, None] * _max_min_sum(d_sig_all)
+    out = _finalize(d_pi, d_mu, d_sigma, flatten=flatten)
+    per_point = torch.cat([d_pi_all, d_mu_all, d_sig_all], dim=3).reshape(B, N, -1)
+    return out, per_point
+
+
+# ---------------------------------------------------------------------------
+# NumPy reference implementations (host-side; parity with the reference's
+# oracles `utils/utils.py:147-330`).  `gmm` has weights [K], means [K, D]
+# and covariances [K, D] (`ops/gmm.py::GridGMM`).
+# ---------------------------------------------------------------------------
+
+
+def soft_assignment_np(points: np.ndarray, gmm) -> np.ndarray:
+    """Posterior responsibilities q[n, k] of each point under a diagonal
+    GMM."""
+    points = np.atleast_2d(points)
+    weights, means, covariances = gmm.weights, gmm.means, gmm.covariances
+    diff = points[:, None, :] - means[None]  # [N,K,D]
+    log_p = -0.5 * np.sum(diff ** 2 / covariances[None], axis=-1)
+    log_p += -0.5 * np.sum(np.log(2.0 * np.pi * covariances), axis=-1)[None]
+    log_wp = log_p + np.log(weights)[None]
+    log_wp -= log_wp.max(axis=1, keepdims=True)
+    q = np.exp(log_wp)
+    q /= q.sum(axis=1, keepdims=True)
+    return q
+
+
+def fisher_vector_np(xx: np.ndarray, gmm, normalization: bool = True) -> np.ndarray:
+    """Classic (sum-aggregated) Fisher vector of a point set (parity:
+    `utils/utils.py:147-211`, the Sanchez et al. formulation with
+    signed-sqrt power normalization and per-column L2 normalization)."""
+    xx = np.atleast_2d(xx)
+    n_points = xx.shape[0]
+    weights, means, covariances = gmm.weights, gmm.means, gmm.covariances
+    D = means.shape[1]
+
+    q = soft_assignment_np(xx, gmm)  # [N,K]
+    s0 = q.sum(0)[:, None] / n_points
+    s1 = q.T @ xx / n_points
+    s2 = q.T @ (xx ** 2) / n_points
+
+    tiled_w = np.tile(weights[:, None], [1, D])
+    d_pi = (s0.squeeze() - n_points * weights) / np.sqrt(weights)
+    d_mu = (s1 - means * s0) / np.sqrt(tiled_w * covariances)
+    d_sigma = (s2 - 2 * s1 * means + s0 * means ** 2 - s0 * covariances) / (
+        np.sqrt(2 * tiled_w) * covariances
+    )
+
+    alpha = 0.5
+    d_pi = np.sign(d_pi) * np.abs(d_pi) ** alpha
+    d_mu = np.sign(d_mu) * np.abs(d_mu) ** alpha
+    d_sigma = np.sign(d_sigma) * np.abs(d_sigma) ** alpha
+
+    if normalization:
+        def _norm_cols(a):
+            n = np.linalg.norm(a, axis=0, keepdims=True)
+            return a / np.where(n == 0, 1.0, n)
+
+        d_pi = _norm_cols(d_pi[:, None]).ravel()
+        d_mu = _norm_cols(d_mu)
+        d_sigma = _norm_cols(d_sigma)
+
+    return np.hstack((d_pi, d_mu.flatten(), d_sigma.flatten()))
+
+
+def fisher_vector_per_point_np(xx: np.ndarray, gmm):
+    """Per-point (unaggregated) Fisher-vector derivatives (parity:
+    `utils/utils.py:214-245`): (d_pi [N, K], d_mu [N, K, D],
+    d_sigma [N, K, D])."""
+    xx = np.atleast_2d(xx)
+    weights, means, covariances = gmm.weights, gmm.means, gmm.covariances
+
+    q = soft_assignment_np(xx, gmm)  # [N, K]
+    d_pi = (q - weights[None]) / np.sqrt(weights)[None]
+    x_mu = xx[:, None, :] - means[None]  # [N, K, D]
+    sqrt_w = np.sqrt(weights)[None, :, None]
+    d_mu = q[..., None] * x_mu / (np.sqrt(covariances)[None] * sqrt_w)
+    d_sigma = (
+        q[..., None]
+        * (np.square(x_mu) / covariances[None] - 1.0)
+        / (np.sqrt(2.0) * sqrt_w)
+    )
+    return d_pi, d_mu, d_sigma

@@ -4,7 +4,9 @@ Counterpart of `nestinet_tpu/train/trainer.py` (`:37-344`): the host
 prefetching data loader -> batches on the model's device -> the train step
 (scheduled lr and BN decay) -> per-epoch validation RMS -> periodic and
 best checkpoints, with deterministic resume that never regresses the best
-checkpoint.  Every model of `build_model` trains; the switching model's
+checkpoint; `cfg.profile_epoch` traces that epoch's train loop into
+`<run>/profile/` (`core/profiling.py::trace`), as JAX does (`:163-166`);
+every epoch's scalars go to `metrics.jsonl` and `<run>/tb/`.  Every model of `build_model` trains; the switching model's
 noise_loss is logged beside the loss.  A run dir that the JAX trainer wrote
 resumes from its `ckpt/` (`core/checkpoint.py`): weights, BatchNorm state,
 step, epoch and the optimizer's moments.  One device trains: the JAX
@@ -25,7 +27,7 @@ from .. import convert
 from ..core import checkpoint as ckpt_lib
 from ..core.config import Config
 from ..core.device import resolve_device, set_f32_numerics
-from ..core.profiling import StepTimer
+from ..core.profiling import StepTimer, trace
 from ..core.rundir import RunDir
 from ..data.augment import rotate_patches_and_normals
 from ..data.loader import get_data_loader
@@ -49,8 +51,6 @@ class Trainer:
                 f"data_parallel={cfg.data_parallel}, expert_parallel={cfg.expert_parallel}: "
                 "multi-GPU training is not ported to PyTorch yet (see ROADMAP.md)"
             )
-        if cfg.profile_epoch >= 0:
-            raise NotImplementedError("profile_epoch: the device trace is not ported yet")
         if getattr(cfg, "fold_bn", False):
             # BN folding is a serving-only checkpoint transform; in training
             # the EMA state must keep updating and validation must read it.
@@ -151,15 +151,17 @@ class Trainer:
         losses = []
         self._step_metrics.clear()
         timer = StepTimer(self.device)
-        for batch in loader:
-            if cfg.insert_rotation_augmentation:
-                batch = dict(batch)
-                batch["points"], batch["normals"] = rotate_patches_and_normals(
-                    batch["points"], batch["normals"], aug_rng
-                )
-            with timer.step():
-                losses.append(self._train_step(batch, self.step))
-            self.step += 1
+        with trace(os.path.join(self.rundir.path, "profile"),
+                   enabled=epoch == cfg.profile_epoch, device=self.device):
+            for batch in loader:
+                if cfg.insert_rotation_augmentation:
+                    batch = dict(batch)
+                    batch["points"], batch["normals"] = rotate_patches_and_normals(
+                        batch["points"], batch["normals"], aug_rng
+                    )
+                with timer.step():
+                    losses.append(self._train_step(batch, self.step))
+                self.step += 1
         mean_loss = float(torch.stack(losses).mean()) if losses else 0.0
         extra = {k: float(torch.stack(v).mean()) for k, v in self._step_metrics.items() if v}
         self.rundir.log(f"epoch {epoch:4d} train mean loss: {mean_loss:.6f}" + "".join(

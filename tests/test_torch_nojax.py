@@ -9,7 +9,10 @@ forward, dense and routed on device-extracted patches, then the same model
 folded and in int8, then one train and one eval step; then a full-depth
 single-scale model's forward, and the committed JAX run dir
 (`nestinet_tpu_torch/testdata/jax_run_moe3/`) read by the flax-free reader
-and served.  An AST scan of every file of the port and of `chip_smoke.py`
+and served; then the CLIs `synth`, `test_all`, `evaluate
+--expert_statistics 1` and `scan` (a 16-bit depth PNG) on that run dir,
+on the CPU.  PIL, matplotlib, tensorboard and sklearn are blocked too:
+the GPU machine has none of them.  An AST scan of every file of the port and of `chip_smoke.py`
 fails on any import of those packages, `nestinet_tpu` or their submodules,
 including the imports inside functions that the subprocess never reaches.
 """
@@ -28,7 +31,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent(
     """
     import sys
-    BLOCKED = ("jax", "jaxlib", "haiku", "flax", "optax", "msgpack", "nestinet_tpu")
+    BLOCKED = ("jax", "jaxlib", "haiku", "flax", "optax", "msgpack", "nestinet_tpu",
+               "PIL", "matplotlib", "tensorboard", "sklearn")
     for name in BLOCKED:
         sys.modules[name] = None  # any import of them now raises ImportError
 
@@ -42,6 +46,14 @@ SCRIPT = textwrap.dedent(
         "nestinet_tpu_torch.core.profiling",
         "nestinet_tpu_torch.core.rundir",
         "nestinet_tpu_torch.core.textio",
+        "nestinet_tpu_torch.core.tb",
+        "nestinet_tpu_torch.data.depth",
+        "nestinet_tpu_torch.eval.expert_stats",
+        "nestinet_tpu_torch.infer.scan",
+        "nestinet_tpu_torch.cli.scan",
+        "nestinet_tpu_torch.cli.test_all",
+        "nestinet_tpu_torch.cli.evaluate",
+        "nestinet_tpu_torch.cli.synth",
         "nestinet_tpu_torch.data",
         "nestinet_tpu_torch.data.pcpnet",
         "nestinet_tpu_torch.data.dataset",
@@ -177,6 +189,34 @@ SCRIPT = textwrap.dedent(
         stats = predict_shapes_device(os.path.join(tmp, "run"), data_path=os.path.join(tmp, "data"),
                                       batch_size=64, compute_dtype="float32", device="cpu")
         assert stats["n_patches"] == 400
+
+        import json, zlib, struct, contextlib, io
+        from nestinet_tpu_torch.cli import evaluate, scan, synth, test_all
+        run, synth_root = os.path.join(tmp, "run"), os.path.join(tmp, "synth")
+        synth.main(["--root", synth_root, "--n_points", "60", "--n_pidx", "10"])
+        with open(os.path.join(synth_root, "lists.txt"), "w") as f:
+            f.write("testset.txt" + chr(10))
+        test_all.main(["--results_path", run, "--dataset_path", synth_root, "--testset_list",
+                       "lists.txt", "--dataset_name", "s", "--batch_size", "64", "--device", "cpu"])
+        results = os.path.join(run, "s_results")
+        evaluate.main(["--normal_results_path", results, "--data_path", synth_root,
+                       "--expert_statistics", "1", "--n_experts", "2"])
+        with open(os.path.join(results, "images", "expert_statistics",
+                               "testset_expert_statistics.json")) as f:
+            assert sum(json.load(f)["count"]) == 6 * 10
+        depth = (1000 + 10 * np.arange(12 * 16).reshape(12, 16)).astype(">u2")
+        raw = b"".join(bytes(1) + row.tobytes() for row in depth)  # filter 0 rows
+        chunk = lambda k, d: struct.pack(">I", len(d)) + k + d + struct.pack(">I", zlib.crc32(k + d))
+        with open(os.path.join(tmp, "d.png"), "wb") as f:
+            f.write(bytes([137, 80, 78, 71, 13, 10, 26, 10]) + chunk(b"IHDR", struct.pack(">IIBBBBB", 16, 12, 16, 0, 0, 0, 0))
+                    + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+        np.savetxt(os.path.join(tmp, "k.txt"), [[10.0, 0, 8], [0, 10.0, 6], [0, 0, 1]])
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            scan.main(["--results_path", run, "--depth", os.path.join(tmp, "d.png"),
+                       "--intrinsic", os.path.join(tmp, "k.txt"), "--depth_shift", "1000",
+                       "--batch_size", "64", "--project_to_image", "1", "--device", "cpu"])
+        assert json.loads(out.getvalue())["n_points"] == 12 * 16
     assert all(sys.modules.get(n) is None for n in BLOCKED)
     print("NOJAX_OK")
     """
@@ -198,7 +238,8 @@ def _port_files():
     return files + [os.path.join(REPO, "chip_smoke.py")]
 
 
-BLOCKED = ("nestinet_tpu", "jax", "jaxlib", "haiku", "flax", "optax", "msgpack")
+BLOCKED = ("nestinet_tpu", "jax", "jaxlib", "haiku", "flax", "optax", "msgpack", "PIL",
+           "matplotlib", "tensorboard", "sklearn")
 
 
 def _jax_package_imports(path):
@@ -239,6 +280,10 @@ def test_port_files_import_nothing_of_the_jax_package():
     "def f():\n    from flax.serialization import msgpack_restore",
     "import optax",
     "def f():\n    import msgpack",
+    "from PIL import Image",
+    "import matplotlib.pyplot as plt",
+    "def f():\n    from tensorboard.compat.proto.event_pb2 import Event",
+    "def f():\n    from sklearn.mixture import GaussianMixture",
 ])
 def test_the_scan_finds_an_import_of_the_jax_package(tmp_path, source):
     path = tmp_path / "mod.py"
