@@ -48,8 +48,9 @@ and prints no result):
      batch, finite normals, ids in [0, 7), a finite RMS from
      `eval/evaluate.py`;
   8. the host routed path (`predict_shapes`, kd-tree extraction, batch
-     128) on the same run dir and testset, checked the same way;
-  9. the host dense path on two of the shapes, checked the same way; then
+     128) on the same run dir and two of the shapes (10,000 patches),
+     checked the same way;
+  9. the host dense path on one of the shapes, checked the same way; then
      one device-extracted batch routed and dense (identical ids, normals at
      atol 1e-4) and one host batch against the same model on the plain
      MuPS;
@@ -97,7 +98,7 @@ and prints no result):
      single-scale model on the flagship's middle radius (0.03), the
      multi-scale one on all three, the switching one on the smallest and
      largest (its noise head rescaled on one batch so that both branches
-     are taken).  (a) Each serves two of the six test shapes (10,000
+     are taken).  (a) Each serves one of the six test shapes (5,000
      patches) through `predict_shapes_device` in float32 and bfloat16, the
      single-scale model also in int8 with BatchNorm folded, which must
      launch the int8 kernel: one MuPS launch a batch, finite `.normals` and
@@ -105,13 +106,15 @@ and prints no result):
      model's share of served patches in each branch is printed, and a
      branch that serves none fails the run; one device batch is held
      against the same model on the plain MuPS at atol 1e-4 in float32.  (b) Each model's float32
-     train step at B = 256 is timed as in 13b; then `cli.train --model
-     ...` runs 2 epochs at B = 256 (the single- and multi-scale models on
+     train step at B = 256 is timed as in 13b over 6 steps (the median of
+     steps 3-6); then `cli.train --model ...` runs 1 epoch at B = 256 (the
+     single- and multi-scale models on
      the synthetic training and validation sets, 4 steps an epoch; the
      switching model on the switching benchmark at 2,000 points a shape,
      32 patches a shape, 3 steps an epoch), the three at once (their
      float32 step peaks sum to about half the card), and `cli.test
-     --extraction=device` serves each trained run on two shapes.  (c) `cli.test` serves the run
+     --extraction=device` serves each trained run on one shape (the
+     switching model's on two of its benchmark).  (c) `cli.test` serves the run
      dir that the JAX package wrote (`nestinet_tpu_torch/testdata/
      jax_run_moe3/`, read by the flax-free msgpack reader) on the card in
      float32: normals within atol 1e-4 of the ones JAX served on the CPU.
@@ -125,20 +128,47 @@ and prints no result):
      exactly at the projected pixels and unit there; the time split
      (depth->xyz, staging write, serving with patches/s and loader wait,
      projection); then `python -m nestinet_tpu_torch.cli.scan
-     --project_to_image 1` end to end on the frame written as a 16-bit PNG,
-     held against the in-process outputs; (b) `cli.synth` against
+     --project_to_image 1` end to end on the same scene at 1/4 of the
+     resolution (60 x 80) written as a 16-bit PNG, held against
+     `predict_scan` on that frame; (b) `cli.synth` against
      `build_protocol_benchmark` file for file, `cli.test_all` over two
      one-shape test lists (its `main` in process, launch counts at 0: one
      MuPS launch a batch) and `cli.evaluate --expert_statistics 1` of its
      results (finite RMS, expert counts equal to the served ids), and the
      MuPS variants (`tdmfv_classification`, `tdmfv_sym`, `fv`, `tdmfv_seg`)
-     on the card against the CPU at atol 1e-5.
+     on the card against the CPU at atol 1e-5;
+ 16. data parallelism (`train/distributed.py`, `train/mesh.py`) on the one
+     card: (a) an NCCL process group of one rank in this process: the
+     full-width float32 train step at B = 256 through the data-parallel
+     code (the gradient all-reduce) equals the plain step bit for bit
+     (weights, buffers, gradients; cuDNN's deterministic algorithms on for
+     both), and device-sparse float32 serving of one shape in the group
+     writes phase 7's files byte for byte; (b) two ranks on cuda:0 over
+     gloo with CUDA tensors (NCCL refuses two ranks on one GPU): the B =
+     256 step, 128 rows a rank with global BatchNorm moments, against the
+     one-process step at phase 13a's bars (the spread measured on the card
+     at points moved by 1e-7), the BatchNorm state equal on both ranks, one
+     MuPS launch and no plain backward call a rank and a step, the step
+     and its gradient all-reduce timed per rank; `cli.train
+     --data_parallel 2 --backend gloo` for one epoch of 13c's sets; `cli.test
+     --data_parallel 2 --backend gloo` over the 6-shape testset with device
+     extraction in float32 (ids identical to phase 7's, normals within
+     1e-4) and in int8 with BatchNorm folded (phase 10's files byte for
+     byte), each rank's patches and launches counted.  Two ranks on one
+     card measure the data-parallel path's overhead, not its scaling.
 
-The whole script ran in about 890 s on an H100 (phases 1-12 about 300 s,
-phase 15 about 250 s, of its 1,200 s limit), so the only cuts of depth
-are host-dense's, which serves two of the six shapes, and phase 13's and
-14's: a few steps an epoch, and cli.test on two shapes.  The scan's frame
-is not cut: it is ScanNet's halved.
+Before phase 16 the whole script ran in about 905 s on an H100 (phases
+1-12 about 300 s, phase 14 about 195 s, phase 15 about 250 s, of its
+1,200 s limit), and one call on a slower host took 30% longer.  Phase 16
+adds about 230 s, so the depth of earlier phases was cut for it, phase
+14's first: it serves one test shape where it served two, times 6 steps
+where it took 10 and runs 1 epoch of `cli.train` where it ran 2; host
+routing serves two shapes where it served six and host-dense one where it
+served two; `cli.scan` runs on the scan's scene at 1/4 of the
+resolution, held against `predict_scan` on that frame, where it re-served
+the whole frame.  Phase 13 keeps its few steps an epoch and cli.test on
+two shapes.  The scan's frame served in process is not cut: it is
+ScanNet's halved.
 
 Each serving path and the kernels' entry point run with the launch counts
 set to 0 just before and read just after; a kernel of the path that was
@@ -200,6 +230,12 @@ ABLATION_DTYPES = {
     "ms_norm_est": (("f32", "float32", False), ("bf16", "bfloat16", False)),
     "ms_sw_n_est": (("f32", "float32", False), ("bf16", "bfloat16", False)),
 }
+ABLATION_TRAIN_STEPS = 6  # phase 14b: the f32 step timed over steps 3-6
+ABLATION_EPOCHS = 1  # phase 14b: cli.train of each ablation model
+# phase 14b's test lists of the trained runs: one shape; the switching model's two
+# of its own set (the noise levels 0 and 0.03); phase 14a serves testset_one
+ABLATION_TESTSET = {"ss_norm_est": "testset_one", "ms_norm_est": "testset_one",
+                    "ms_sw_n_est": "testset_two"}
 SWITCH_POINTS = 2000  # points per shape of the switching benchmark
 # 30 training and 10 validation shapes: 3 steps of 256 an epoch, 1 validation batch
 SWITCH_PATCHES_PER_SHAPE = 32
@@ -207,6 +243,7 @@ SWITCH_GAP = 1e-5  # noise estimates this close to 0.015 may take either branch
 # phase 15, the scan and the CLIs
 SCAN_H, SCAN_W = 240, 320  # ScanNet's 480 x 640 depth frame halved
 SCAN_F = 577.870605 / 2  # ScanNet's depth focal length (pixels), halved
+SCAN_CLI_DIV = 4  # cli.scan's frame: 15a's scaled by 1/4 (60 x 80), ScanNet's by 1/8
 SYNTH_POINTS = 1000  # points per shape of cli.synth's set
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -982,10 +1019,11 @@ def check_train_step_against_cpu(dev, cfg, gmm, kernel):
             "bn_fed_bias_grad_err": card["bias"], "cpu_step_s": cpu_s}
 
 
-def time_train_steps(dev, cfg, gmm, dtype, kernel, card):
+def time_train_steps(dev, cfg, gmm, dtype, kernel, card, steps=None):
     """Phase 13b (and 14b, for each ablation model in float32): the
     full-width train step at B = 256 (or the largest batch that fits) on
-    one fixed batch: ms per step (CUDA events, the median of steps 3-10),
+    one fixed batch, `steps` steps (TRAIN_STEPS[dtype] by default): ms per
+    step (CUDA events, the median of steps 3-10),
     patches/s, peak memory, MuPS launches per step, the MuPS kernel's share
     of the step; the loss after the last adam step must be below the first
     step's."""
@@ -997,7 +1035,7 @@ def time_train_steps(dev, cfg, gmm, dtype, kernel, card):
     from nestinet_tpu_torch.models import build_model
     from nestinet_tpu_torch.train.train_step import make_optimizer, make_train_step
 
-    steps = TRAIN_STEPS[dtype]
+    steps = steps or TRAIN_STEPS[dtype]
     for batch_size in TRAIN_BATCHES:
         c = dataclasses.replace(cfg, compute_dtype=dtype, batch_size=batch_size)
         model = build_model(c, gmm, torch.Generator().manual_seed(SEED)).to(dev)
@@ -1036,7 +1074,7 @@ def time_train_steps(dev, cfg, gmm, dtype, kernel, card):
            "mups_ms": mups_ms, "mups_share": mups_ms / ms, "first_loss": losses[0],
            "last_loss": losses[-1], "steps": steps, "step_ms": times}
     print(f"train step {cfg.model} {dtype} [full width, B={batch_size}]: {ms:.1f} ms (median of steps "
-          f"3-10), {out['patches_per_s']:.1f} patches/s, peak {peak_gb:.2f} GB, MuPS "
+          f"3-{min(steps, 10)}), {out['patches_per_s']:.1f} patches/s, peak {peak_gb:.2f} GB, MuPS "
           f"{launches / steps:g} launches per step, {mups_ms:.3f} ms "
           f"({100 * out['mups_share']:.2f}% of the step); loss {losses[0]:.4f} at step 1, "
           f"{losses[-1]:.4f} at step {steps} [{card}]", flush=True)
@@ -1190,21 +1228,22 @@ def check_tb_and_trace(run):
 
 # ---------------------------------------------------------------- phase 15
 
-def scan_frame(seed: int):
+def scan_frame(seed: int, h: int = SCAN_H, w: int = SCAN_W, f: float = SCAN_F):
     """Phase 15a's depth frame: a floor, a wall and a sphere ray-cast from
-    a camera with ScanNet's depth intrinsics halved, in millimetres (uint16)
-    with about 10% holes; and a camera-to-world pose with a rotation and a
-    translation.  Rays follow `depth_to_xyz`'s 1-based pixels: pixel (x, y)
-    looks along K^-1 (x + 1, y + 1, 1), and its depth is the hit's z."""
+    a camera with ScanNet's depth intrinsics halved (or, with `h`, `w` and
+    `f`, scaled otherwise), in millimetres (uint16) with about 10% holes;
+    and a camera-to-world pose with a rotation and a translation.  Rays
+    follow `depth_to_xyz`'s 1-based pixels: pixel (x, y) looks along K^-1
+    (x + 1, y + 1, 1), and its depth is the hit's z."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
-    fx = fy = SCAN_F
-    cx, cy = (SCAN_W - 1) / 2, (SCAN_H - 1) / 2
+    fx = fy = f
+    cx, cy = (w - 1) / 2, (h - 1) / 2
     intrinsic = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
-    yy, xx = np.mgrid[:SCAN_H, :SCAN_W]
+    yy, xx = np.mgrid[:h, :w]
     rx, ry = (xx + 1 - cx) / fx, (yy + 1 - cy) / fy  # ray (rx, ry, 1)
-    t = np.full((SCAN_H, SCAN_W), 3.5)  # the wall, z = 3.5 m
+    t = np.full((h, w), 3.5)  # the wall, z = 3.5 m
     floor = np.where(ry > 0, 1.0 / np.maximum(ry, 1e-9), np.inf)  # y = 1 m (y is down)
     t = np.minimum(t, floor)
     c, radius = np.array([0.25, 0.35, 2.2]), 0.5
@@ -1214,7 +1253,7 @@ def scan_frame(seed: int):
     hit = (b - np.sqrt(np.maximum(disc, 0.0))) / a
     t = np.where((disc > 0) & (hit > 0), np.minimum(t, hit), t)
     depth = np.round(t * 1000 + rng.normal(0, 2, t.shape)).astype(np.uint16)
-    depth[rng.rand(SCAN_H, SCAN_W) < 0.1] = 0
+    depth[rng.rand(h, w) < 0.1] = 0
     ang = np.deg2rad([-20.0, 10.0])
     rot_x = np.array([[1, 0, 0], [0, np.cos(ang[0]), -np.sin(ang[0])],
                       [0, np.sin(ang[0]), np.cos(ang[0])]])
@@ -1273,11 +1312,12 @@ def projected_mask(points, intrinsic, pose):
 def phase15a(tmp, run, kernels, card):
     """Phase 15a: the scan at full width on phase 7's run dir (float32):
     `predict_scan` in process with the launch counts at 0 (one MuPS launch
-    a batch), then `python -m nestinet_tpu_torch.cli.scan` end to end on the
-    same frame written as a 16-bit PNG.  Checks the point count, finite
-    normals, unit normals at the image's non-zero pixels, the image's zero
-    mask against the projection, and the CLI's outputs against the
-    in-process ones."""
+    a batch), then `python -m nestinet_tpu_torch.cli.scan` end to end on a
+    frame of the same scene at 1/SCAN_CLI_DIV of its resolution, written as
+    a 16-bit PNG, against `predict_scan` on that frame.  Checks the point
+    count, finite normals, unit normals at the image's non-zero pixels, the
+    image's zero mask against the projection, and the CLI's outputs against
+    the in-process ones."""
     import numpy as np
 
     from nestinet_tpu_torch.infer.scan import load_depth, predict_scan
@@ -1318,7 +1358,19 @@ def phase15a(tmp, run, kernels, card):
           f"{st['serving']:.2f} s ({stats['patches_per_sec']:.1f} patches/s, loader wait "
           f"{stats['loader_wait_seconds']:.2f} s, peak {stats['peak_memory_gb']:.2f} GB), "
           f"projection {st['projection']:.3f} s [{card}]", flush=True)
+    image_pixels = int(mask.sum())
 
+    # the CLI's frame, and predict_scan on it as its reference
+    depth, intrinsic, pose = scan_frame(SEED, SCAN_H // SCAN_CLI_DIV, SCAN_W // SCAN_CLI_DIV,
+                                        SCAN_F / SCAN_CLI_DIV)
+    write_png16(png, depth)
+    small = serve("scan, 1/4 frame (predict_scan)", lambda: predict_scan(
+        run, depth.astype(np.float64), intrinsic, pose, depth_shift=1000.0,
+        batch_size=DEVICE_BATCH, output_dir=os.path.join(tmp, "scan_small"),
+        project_to_image=True), kernels, card)
+    normals = np.loadtxt(small["normals_path"])
+    experts = np.loadtxt(os.path.join(tmp, "scan_small", "scan.experts"))
+    mask = np.any(small.pop("normal_image") != 0, axis=-1)
     np.savetxt(os.path.join(tmp, "scan_intrinsic.txt"), intrinsic)
     np.savetxt(os.path.join(tmp, "scan_pose.txt"), pose)
     cli_dir = os.path.join(tmp, "scan_cli")
@@ -1333,7 +1385,8 @@ def phase15a(tmp, run, kernels, card):
     same = cli_experts == experts
     err = float(np.abs(cli_normals[same] - normals[same]).max())
     scale = max(1.0, float(np.abs(normals).max()))  # random weights: |n| is not 1
-    print(f"cli.scan: {secs:.1f} s end to end; against predict_scan: experts equal on "
+    print(f"cli.scan: {small['n_patches']} points, {secs:.1f} s end to end; against "
+          f"predict_scan on the same frame: experts equal on "
           f"{same.mean():.5f}, normals max abs diff {err:.3e} where they are (max |n| "
           f"{scale:.3g})", flush=True)
     if cli_normals.shape != normals.shape or same.mean() < 0.999 or not (
@@ -1342,7 +1395,8 @@ def phase15a(tmp, run, kernels, card):
     if not np.array_equal(np.any(cli_img != 0, axis=-1), mask):
         fail("cli.scan's image is non-zero at other pixels than predict_scan's")
     stats.update(n_points=valid, cli_seconds=secs, cli_experts_equal=float(same.mean()),
-                 cli_normals_max_abs_diff=err, image_pixels=int(mask.sum()))
+                 cli_normals_max_abs_diff=err, cli_points=small["n_patches"],
+                 image_pixels=image_pixels)
     print(f"phase 15a: the phase took {time.perf_counter() - t15:.1f} s", flush=True)
     return stats
 
@@ -1578,7 +1632,7 @@ def check_ablation_batch(run, cfg, idx, grids, queries, radii, seed, caps, dev):
 
 def ablation_train_args(model_name, data, sw_data, run):
     """Phase 14b: `cli.train` of one ablation model at full width, B = 256,
-    2 epochs of a few steps (the switching model on the switching
+    ABLATION_EPOCHS of a few steps (the switching model on the switching
     benchmark)."""
     if model_name == "ms_sw_n_est":
         data, lists, pps = sw_data, ("trainingset_switching.txt",
@@ -1589,11 +1643,12 @@ def ablation_train_args(model_name, data, sw_data, run):
     return ["--model", model_name, "--data_path", data, "--log_dir", run,
             "--trainset", lists[0], "--testset", lists[1], "--patch_radius", *radii,
             "--num_point", "512", "--num_gaussians", "8", "--batch_size", "256",
-            "--patches_per_shape", str(pps), "--seed", str(SEED), "--max_epoch", "2"]
+            "--patches_per_shape", str(pps), "--seed", str(SEED),
+            "--max_epoch", str(ABLATION_EPOCHS)]
 
 
 def check_ablation_trained(model_name, run):
-    """Phase 14b: 2 train and 2 eval epochs in metrics.jsonl with finite
+    """Phase 14b: ABLATION_EPOCHS train and eval epochs in metrics.jsonl with finite
     losses (the switching model's noise_loss too) and a finite validation
     RMS, the periodic checkpoint."""
     import json as _json
@@ -1605,7 +1660,7 @@ def check_ablation_trained(model_name, run):
     with open(os.path.join(run, "metrics.jsonl")) as f:
         metrics = [_json.loads(line) for line in f]
     kinds = [m["kind"] for m in metrics]
-    if kinds != ["train", "eval"] * 2 or not checkpoint.exists(run):
+    if kinds != ["train", "eval"] * ABLATION_EPOCHS or not checkpoint.exists(run):
         fail(f"{model_name}: the trained run holds {kinds}")
     keys = ("loss", "noise_loss") if model_name == "ms_sw_n_est" else ("loss",)
     if not all(np.isfinite(m[k]) for m in metrics if m["kind"] == "train" for k in keys):
@@ -1652,9 +1707,9 @@ def check_jax_fixture(tmp):
 
 def phase14(tmp, data, dev, grids, queries, radii, bseed, caps, run_gmm, kernels, card):
     """Phase 14: each ablation model served at full width from a seed (f32,
-    bf16, and int8+fold for the single-scale model) on two test shapes, one
+    bf16, and int8+fold for the single-scale model) on ABLATION_TESTSET, one
     device batch held against the plain MuPS, the f32 train step timed,
-    `cli.train` for 2 epochs and `cli.test` of the trained run, then the
+    `cli.train` for ABLATION_EPOCHS and `cli.test` of the trained run, then the
     JAX run dir served on the card; returns (per-model record, the JAX run
     dir's record)."""
     import torch
@@ -1672,6 +1727,7 @@ def phase14(tmp, data, dev, grids, queries, radii, bseed, caps, run_gmm, kernels
               if n.endswith(("_sw000", "_sw030"))][:2]
     with open(os.path.join(sw_data, "testset_two.txt"), "w") as f:
         f.write("\n".join(sw_two) + "\n")
+    test_data = {m: sw_data if m == "ms_sw_n_est" else data for m in ABLATION_RADII}
     ablations = {}
     for model_name in ABLATION_RADII:
         run, acfg, idx, share = make_ablation_run(tmp, data, model_name, grids, queries,
@@ -1679,11 +1735,11 @@ def phase14(tmp, data, dev, grids, queries, radii, bseed, caps, run_gmm, kernels
         runs = {}
         for label, dtype, fold in ABLATION_DTYPES[model_name]:
             runs[label] = serve(f"{model_name} device {label}", lambda: predict_shapes_device(
-                run, dataset_name=f"ablation_{label}", testset="testset_two.txt",
-                data_path=data, batch_size=DEVICE_BATCH, compute_dtype=dtype, fold_bn=fold),
-                kernels, card, int8=dtype == "int8")
-            runs[label]["rms"] = check_outputs(data, runs[label]["output_dir"],
-                                               "testset_two", None)["rms"]
+                run, dataset_name=f"ablation_{label}", testset="testset_one.txt",
+                data_path=data, batch_size=DEVICE_BATCH, compute_dtype=dtype,
+                fold_bn=fold), kernels, card, int8=dtype == "int8")
+            runs[label]["rms"] = check_outputs(data, runs[label]["output_dir"], "testset_one",
+                                               None)["rms"]
             if "branch_rows" in runs[label]:
                 rows = runs[label]["branch_rows"]
                 small = rows["small_scale"] / runs[label]["n_patches"]
@@ -1697,37 +1753,357 @@ def phase14(tmp, data, dev, grids, queries, radii, bseed, caps, run_gmm, kernels
                                  "plain_mups_max_abs_err": errs,
                                  "small_branch_share_one_batch": share}
         print(f"evaluate {model_name}: RMS " + ", ".join(
-            f"{k} {v['rms']:.4f} deg" for k, v in runs.items()) + " (random weights, two "
-            "shapes)", flush=True)
+            f"{k} {v['rms']:.4f} deg" for k, v in runs.items()) + " (random weights, one "
+            "shape)", flush=True)
     torch.cuda.empty_cache()
     for model_name, idx in ABLATION_RADII.items():
         tcfg = Config(model=model_name, patch_radius=tuple(FLAGSHIP_RADII[i] for i in idx),
                       num_point=512, num_gaussians=8, seed=SEED)
         ablations[model_name]["train_step_f32"] = time_train_steps(
-            dev, tcfg, run_gmm, "float32", kernel, card)
+            dev, tcfg, run_gmm, "float32", kernel, card, steps=ABLATION_TRAIN_STEPS)
     # the three cli.train calls at once: their f32 step peaks sum to about half the card
     train_runs = {m: os.path.join(tmp, f"train_{m}") for m in ABLATION_RADII}
     for m, secs in zip(ABLATION_RADII, run_modules([
             ("nestinet_tpu_torch.cli.train", ablation_train_args(m, data, sw_data, train_runs[m]))
             for m in ABLATION_RADII])):
         ablations[m]["cli_train_seconds"] = secs
-    test_data = {m: sw_data if m == "ms_sw_n_est" else data for m in ABLATION_RADII}
     test_secs = run_modules([("nestinet_tpu_torch.cli.test", [
         "--results_path", train_runs[m], "--dataset_path", test_data[m], "--testset",
-        "testset_two.txt", "--dataset_name", "trained", "--extraction", "device",
+        f"{ABLATION_TESTSET[m]}.txt", "--dataset_name", "trained", "--extraction", "device",
         "--batch_size", str(DEVICE_BATCH), "--model", m]) for m in ABLATION_RADII])
     for m, secs in zip(ABLATION_RADII, test_secs):
         ablations[m]["trained_metrics"] = check_ablation_trained(m, train_runs[m])
         ablations[m]["trained_rms"] = check_outputs(
-            test_data[m], os.path.join(train_runs[m], "trained_results"), "testset_two",
-            None)["rms"]
-        print(f"{m}: cli.train {ablations[m]['cli_train_seconds']:.1f} s (2 epochs, the "
-              f"three at once), cli.test of the trained run {secs:.1f} s (device "
-              f"extraction, bf16, two shapes): RMS {ablations[m]['trained_rms']:.4f} deg; "
+            test_data[m], os.path.join(train_runs[m], "trained_results"),
+            ABLATION_TESTSET[m], None)["rms"]
+        print(f"{m}: cli.train {ablations[m]['cli_train_seconds']:.1f} s ({ABLATION_EPOCHS} "
+              f"epoch, the three at once), cli.test of the trained run {secs:.1f} s (device "
+              f"extraction, bf16, {ABLATION_TESTSET[m]}): RMS "
+              f"{ablations[m]['trained_rms']:.4f} deg; "
               f"metrics {ablations[m]['trained_metrics']}", flush=True)
     jax_fixture = check_jax_fixture(tmp)
     print(f"phase 14: the phase took {time.perf_counter() - t14:.1f} s", flush=True)
     return ablations, jax_fixture
+
+
+# ---------------------------------------------------------------- phase 16
+
+DP_RANKS = 2  # phase 16b: ranks sharing cuda:0 over gloo
+DP_STEPS = 2  # the two-rank step: step 1 held to the one-process step, step 2 timed
+DP_TIMEOUT = 900  # seconds a two-rank launch may take before its ranks are killed
+
+
+def _timed_mesh(mesh, seconds: list):
+    """`mesh` whose gradient all-reduce (`mean_gradients_`) records its
+    wall seconds, the card synchronized around it."""
+    import torch
+
+    class TimedMesh(type(mesh)):
+        def mean_gradients_(self, params, scalars):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().mean_gradients_(params, scalars)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return out
+
+    return TimedMesh(mesh.group, mesh.rank, mesh.size)
+
+
+def dp_step_rank(cfg, batch: dict, steps: int) -> dict | None:
+    """Phase 16b, on each rank: the full-width float32 model from the seed,
+    global BatchNorm moments, this rank's rows of `batch` (CPU tensors), and
+    `steps` data-parallel train steps, each timed with the card
+    synchronized, the gradient all-reduce apart.  Rank 0 returns step 1's
+    loss and gradients, every rank's BatchNorm state after the last step,
+    and every rank's MuPS launches and backward calls in step 1, step
+    times, all-reduce times and peak memory."""
+    import torch
+
+    from nestinet_tpu_torch.core.device import set_f32_numerics
+    from nestinet_tpu_torch.models import build_model
+    from nestinet_tpu_torch.ops import mups as mups_ops
+    from nestinet_tpu_torch.ops.gmm import get_3d_grid_gmm
+    from nestinet_tpu_torch.ops.kernels import mups_cuda
+    from nestinet_tpu_torch.ops.nn import set_moment_sum
+    from nestinet_tpu_torch.train.mesh import make_mesh
+    from nestinet_tpu_torch.train.train_step import make_optimizer, make_train_step
+
+    set_f32_numerics()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(DP_RANKS)
+    gmm = get_3d_grid_gmm([cfg.num_gaussians] * 3, variance=cfg.gmm_variance)
+    model = build_model(cfg, gmm, torch.Generator().manual_seed(SEED)).to(dev)
+    set_moment_sum(model, mesh.sum)
+    reduce_s: list = []
+    step_fn = make_train_step(model, cfg, make_optimizer(model, cfg),
+                              mesh=_timed_mesh(mesh, reduce_s))
+    rows = mesh.rows(batch["points"].shape[0])
+    local = {k: v[rows].to(dev) for k, v in batch.items()}
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, out = [], {}
+    for i in range(steps):
+        mups_cuda.KERNEL.reset_launches()
+        mups_ops.BACKWARD_CALLS["plain"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step_fn(local, i)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        if i == 0:
+            out = {"loss": loss.item(), "launches": mups_cuda.KERNEL.launches["tdmfv_n_est"],
+                   "backward_calls": mups_ops.BACKWARD_CALLS["plain"]}
+            if mesh.is_main:
+                grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    mine = dict(out, step_ms=step_ms, allreduce_ms=[1e3 * s for s in reduce_s],
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    ranks = mesh.gather_to_main(mine)
+    buffers = mesh.gather_to_main({n: b.cpu() for n, b in model.named_buffers()})
+    if not mesh.is_main:
+        return None
+    return {"loss": out["loss"], "grads": grads, "buffers": buffers, "ranks": ranks}
+
+
+def plain_steps(dev, cfg, gmm, batch) -> dict:
+    """Phase 16's one-process references: the plain full-width float32 step
+    from the seed on `batch` (cuDNN's deterministic algorithms on) and the
+    same step on the points moved by 1e-7 relative (the spread of 13a's
+    bars), both on the card.  Returns the plain step's loss, weights,
+    buffers and gradients and the perturbed step's gradients, on the CPU."""
+    import torch
+
+    from nestinet_tpu_torch.models import build_model
+
+    torch.backends.cudnn.deterministic = True
+    model = build_model(cfg, gmm, torch.Generator().manual_seed(SEED)).to(dev)
+    loss, grads = step_gradients(model, cfg, batch)
+    out = {"loss": loss, "grads": grads, "noisy": bn_fed_biases(model),
+           "state": {n: t.cpu() for n, t in model.state_dict().items()}}
+    torch.backends.cudnn.deterministic = False
+    model = build_model(cfg, gmm, torch.Generator().manual_seed(SEED)).to(dev)
+    out["spread_grads"] = step_gradients(model, cfg, perturbed(batch, TRAIN_PERTURB_REL,
+                                                                  SEED))[1]
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase16a(dev, cfg, gmm, batch, plain, data, run, dev_sparse_dir):
+    """Phase 16a: an NCCL group of one rank in this process.  The
+    full-width float32 train step at B = 256 through the data-parallel code
+    (the group's gradient all-reduce) against the plain step from the same
+    weights (`plain_steps`), and device-sparse float32 serving of one shape
+    in the group against phase 7's files: both bit for bit (cuDNN's
+    deterministic algorithms on for the steps)."""
+    import torch
+    import torch.distributed as dist
+
+    from nestinet_tpu_torch.infer.device_pipeline import predict_shapes_device
+    from nestinet_tpu_torch.models import build_model
+    from nestinet_tpu_torch.train import distributed
+    from nestinet_tpu_torch.train.mesh import make_mesh
+    from nestinet_tpu_torch.train.train_step import make_optimizer, make_train_step
+
+    distributed.init_group(0, 1, f"127.0.0.1:{distributed.free_port()}", "nccl")
+    try:
+        mesh = make_mesh(1)
+        model = build_model(cfg, gmm, torch.Generator().manual_seed(SEED)).to(dev)
+        torch.backends.cudnn.deterministic = True
+        loss = make_train_step(model, cfg, make_optimizer(model, cfg), mesh=mesh)(batch, 0)
+        torch.backends.cudnn.deterministic = False
+        differ = [n for n, t in model.state_dict().items()
+                  if not torch.equal(t.cpu(), plain["state"][n])]
+        differ += [n for n, p in model.named_parameters()
+                   if not torch.equal(p.grad.cpu().double(), plain["grads"][n])]
+        print(f"phase 16a: NCCL world of one [full width, f32, B={batch['points'].shape[0]}]: "
+              f"loss {loss.item()!r} against the plain step's {plain['loss']!r}; {len(differ)} "
+              f"weights, buffers or gradients differ", flush=True)
+        if loss.item() != plain["loss"] or differ:
+            fail(f"the data-parallel step of one rank differs from the plain step: {differ[:5]}")
+        del model
+        torch.cuda.empty_cache()
+        stats = predict_shapes_device(run, dataset_name="pcpnet_dp1", testset="testset_one.txt",
+                                      data_path=data, batch_size=DEVICE_BATCH,
+                                      moe_inference="sparse", compute_dtype="float32")
+        same = files_equal(stats["output_dir"], dev_sparse_dir, stats["shapes"])
+        print(f"phase 16a: routed f32 serving in the group, {stats['n_patches']} patches: "
+              f"files identical to phase 7's {same}", flush=True)
+        if not same:
+            fail("routed serving in a group of one differs from phase 7's files")
+    finally:
+        dist.destroy_process_group()
+    return {"loss": loss.item(), "serving_patches": stats["n_patches"]}
+
+
+def files_equal(out_dir, ref_dir, shapes, exts=(".normals", ".experts", ".experts_probs")):
+    """True when every `<shape><ext>` of `out_dir` equals `ref_dir`'s byte for byte."""
+    for shape in shapes:
+        for ext in exts:
+            with open(os.path.join(out_dir, shape + ext), "rb") as a, open(
+                    os.path.join(ref_dir, shape + ext), "rb") as b:
+                if a.read() != b.read():
+                    return False
+    return True
+
+
+def phase16b_step(dev, cfg, batch, plain, card):
+    """Phase 16b: two ranks on cuda:0 over gloo take the B = 256 step, 128
+    rows each, against the one-process step (`plain_steps`) at phase 13a's
+    bars: the loss at rtol 1e-5, each gradient tensor within 4x the worst
+    tensor's spread and all of them within 4x the whole spread, the spread
+    being what moving the points by 1e-7 relative does to the one-process
+    step on the card; the BN-fed biases within 1e-4 of their kernel's
+    gradient norm.  The BatchNorm state equal on both ranks, one MuPS
+    launch and no plain backward call per rank a step."""
+    import torch
+
+    from nestinet_tpu_torch.train import distributed
+
+    ref, noisy, plain_loss = plain["grads"], plain["noisy"], plain["loss"]
+    spread = gradient_errors(plain["spread_grads"], ref, noisy)
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 16b: before the launch this process holds "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB; the card has {free / 1e9:.1f} of "
+          f"{total / 1e9:.1f} GB free", flush=True)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    t0 = time.perf_counter()
+    got = distributed.launch(dp_step_rank, DP_RANKS, (cfg, cpu_batch, DP_STEPS), device="cuda",
+                             backend="gloo", timeout=DP_TIMEOUT)
+    secs = time.perf_counter() - t0
+    errs = gradient_errors({n: g.double() for n, g in got["grads"].items()}, ref, noisy)
+    tensor_bar = max(TRAIN_GRAD_SPREADS * spread["worst"][1], 1e-4)
+    all_bar = max(TRAIN_GRAD_SPREADS * spread["all"], 1e-4)
+    loss_err = abs(got["loss"] - plain_loss) / abs(plain_loss)
+    first, second = got["buffers"]
+    bn_equal = all(torch.equal(first[n], second[n]) for n in first)
+    ranks = got["ranks"]
+    step_ms = [sorted(r["step_ms"][1:])[len(r["step_ms"][1:]) // 2] for r in ranks]
+    reduce_ms = [sorted(r["allreduce_ms"][1:])[len(r["allreduce_ms"][1:]) // 2] for r in ranks]
+    print(f"phase 16b: {DP_RANKS} ranks on one card over gloo [full width, f32, B="
+          f"{batch['points'].shape[0]}, {batch['points'].shape[0] // DP_RANKS} a rank]: loss "
+          f"{got['loss']:.6f} vs one process {plain_loss:.6f} (rel err {loss_err:.2e}); "
+          f"gradients, relative L2: worst tensor {errs['worst'][1]:.2e} ({errs['worst'][0]}), "
+          f"all {errs['all']:.2e}; the spread at points moved by {TRAIN_PERTURB_REL:g}: worst "
+          f"{spread['worst'][1]:.2e}, all {spread['all']:.2e}; bars {tensor_bar:.2e} and "
+          f"{all_bar:.2e}; BN-fed biases {errs['bias']:.2e}; BN state equal on both ranks "
+          f"{bn_equal}; MuPS launches in step 1 per rank {[r['launches'] for r in ranks]}, "
+          f"backward calls {[r['backward_calls'] for r in ranks]}", flush=True)
+    shares = [round(100 * a / s, 1) for a, s in zip(reduce_ms, step_ms)]
+    peaks = [round(r["peak_memory_gb"], 2) for r in ranks]
+    print(f"time: the two-rank step {step_ms} ms per rank (the steps after the first), "
+          f"gradient all-reduce {reduce_ms} ms ({shares}% of the step), peak {peaks} GB a rank; "
+          f"the launch took {secs:.1f} s [{card}]", flush=True)
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        fail(f"the two-rank step's loss differs from one process's: {loss_err}")
+    if not (errs["worst"][1] <= tensor_bar and errs["all"] <= all_bar
+            and errs["bias"] <= TRAIN_BIAS_RTOL):
+        fail(f"the two-rank step's gradients differ from one process's: {errs['worst']}, "
+             f"all {errs['all']}, biases {errs['bias']}")
+    if not bn_equal:
+        fail("the BatchNorm state differs between the two ranks")
+    if any(r["launches"] != 1 or r["backward_calls"] != 0 for r in ranks):
+        fail(f"the two-rank step: MuPS launches or backward calls per rank {ranks}")
+    return {"loss_rel_err": loss_err, "grad_worst": errs["worst"], "grad_all": errs["all"],
+            "spread_worst": spread["worst"], "spread_all": spread["all"],
+            "bn_fed_bias_grad_err": errs["bias"], "step_ms": step_ms, "allreduce_ms": reduce_ms,
+            "ranks": ranks, "launch_seconds": secs}
+
+
+def phase16b_cli(data, run, dev_sparse, int8_fold, kernels, card):
+    """Phase 16b: `cli.train --data_parallel 2 --backend gloo` for one epoch
+    of 13c's sets, then `cli.test --data_parallel 2 --backend gloo` with
+    device extraction over the 6-shape testset in float32 (ids identical to
+    phase 7's, normals within 1e-4) and in int8 with BatchNorm folded
+    (files identical to phase 10's int8+fold run); each rank's launches."""
+    import numpy as np
+    import torch
+
+    from nestinet_tpu_torch.cli import test as cli_test
+    from nestinet_tpu_torch.core import checkpoint
+
+    train_run = os.path.join(os.path.dirname(run), "train_run_dp2")
+    train_s = train_cli(data, train_run, "--max_epoch", "1", "--data_parallel", str(DP_RANKS),
+                        "--backend", "gloo")
+    with open(os.path.join(train_run, "metrics.jsonl")) as f:
+        kinds = [json.loads(line)["kind"] for line in f]
+    periodic = checkpoint.load(train_run, torch.device("cpu"))
+    print(f"phase 16b: cli.train --data_parallel {DP_RANKS}, one epoch: metrics {kinds}, "
+          f"checkpoint epoch {periodic['epoch']} step {periodic['step']}, {train_s:.1f} s",
+          flush=True)
+    if kinds != ["train", "eval"] or periodic["epoch"] != 0 or os.path.exists(
+            os.path.join(train_run, "1")):
+        fail(f"cli.train --data_parallel {DP_RANKS}: the run holds {kinds}")
+    out = {"cli_train_seconds": train_s}
+    for label, dtype, fold, ref in (("f32", "float32", "0", dev_sparse),
+                                    ("int8+fold", "int8", "1", int8_fold)):
+        for k in kernels:
+            k.reset_launches()
+        t0 = time.perf_counter()
+        stats = cli_test.main([
+            "--results_path", run, "--dataset_path", data, "--testset", "testset.txt",
+            "--dataset_name", f"dp{DP_RANKS}_{dtype}", "--extraction", "device",
+            "--batch_size", str(DEVICE_BATCH), "--compute_dtype", dtype, "--fold_bn", fold,
+            "--data_parallel", str(DP_RANKS), "--backend", "gloo"], timeout=DP_TIMEOUT)
+        secs = time.perf_counter() - t0
+        ranks = stats["per_rank"]
+        if label == "f32":
+            got = {s: [np.loadtxt(os.path.join(d, s + ext)) for d in
+                       (stats["output_dir"], ref["output_dir"]) for ext in (".experts", ".normals")]
+                   for s in stats["shapes"]}
+            ids = all(np.array_equal(g[0], g[2]) for g in got.values())
+            err = max(float(np.abs(g[1] - g[3]).max()) for g in got.values())
+            same = ids and err <= NORMALS_ATOL
+            check = f"ids identical to phase 7's {ids}, normals max abs err {err:.2e}"
+        else:
+            same = files_equal(stats["output_dir"], ref["output_dir"], stats["shapes"])
+            check = f"files identical to phase 10's int8+fold run {same}"
+        print(f"phase 16b: cli.test --data_parallel {DP_RANKS} device-sparse {label}: "
+              f"{stats['n_patches']} patches, {stats['patches_per_sec']:.1f} patches/s "
+              f"({stats['seconds']:.1f} s serving, {secs:.1f} s with start-up); per rank "
+              f"patches {[r['n_patches'] for r in ranks]}, batches "
+              f"{[r['n_batches'] for r in ranks]}, launches "
+              f"{[r['launches'] for r in ranks]}; {check} [{card}]", flush=True)
+        if not same:
+            fail(f"cli.test --data_parallel {DP_RANKS} {label}: {check}")
+        for r in ranks:
+            if r["launches"]["tdmfv_n_est"] != r["n_batches"] or (
+                    (r["launches"]["int8_conv3d"] > 0) != (dtype == "int8")):
+                fail(f"cli.test --data_parallel {DP_RANKS} {label}: rank launches {r}")
+        if any(k.launches[n] for k in kernels for n in k.launches):
+            fail("the two-rank serving launched a kernel in this process")
+        out[label] = {k: v for k, v in stats.items() if k != "shapes"} | {
+            "seconds_with_start_up": secs}
+    return out
+
+
+def dp_launches(dp: dict, kernel: str) -> dict:
+    """Phase 16b's launches of `kernel` per rank: in the first train step
+    (the MuPS kernel) and in each `cli.test --data_parallel` run."""
+    out = {f"cli_test_{label}_per_rank": [r["launches"][kernel] for r in dp[label]["per_rank"]]
+           for label in ("f32", "int8+fold")}
+    if kernel == "tdmfv_n_est":
+        out["train_step_per_rank"] = [r["launches"] for r in dp["step"]["ranks"]]
+    return out
+
+
+def phase16(tmp, data, dev, cfg, gmm, run, dev_sparse, int8_fold, kernels, card):
+    """Phase 16: data parallelism (`train/distributed.py`, `train/mesh.py`)
+    on the one card: the one-process references, (b) the two-rank step
+    (launched before this process joins any group), (a) an NCCL world of
+    one, (b) cli.train and cli.test on two ranks."""
+    import torch
+
+    t16 = time.perf_counter()
+    batch = training_batch(dev, TRAIN_BATCHES[0], SEED + 2, cfg.patch_radius)
+    plain = plain_steps(dev, cfg, gmm, batch)
+    record = {"step": phase16b_step(dev, cfg, batch, plain, card)}
+    record["world_of_one"] = phase16a(dev, cfg, gmm, batch, plain, data, run,
+                                      dev_sparse["output_dir"])
+    del plain, batch
+    torch.cuda.empty_cache()
+    record |= phase16b_cli(data, run, dev_sparse, int8_fold, kernels, card)
+    print(f"phase 16: the phase took {time.perf_counter() - t16:.1f} s", flush=True)
+    return record
 
 
 def main(argv=None) -> int:
@@ -1822,8 +2198,9 @@ def main(argv=None) -> int:
         build_protocol_benchmark(data, n_points=N_POINTS, n_pidx=500, seed=SEED % 1000)
         with open(os.path.join(data, "testset.txt")) as f:
             shapes = [s.strip() for s in f if s.strip()]
-        with open(os.path.join(data, "testset_two.txt"), "w") as f:
-            f.write("\n".join(shapes[:2]) + "\n")
+        for tlist, n in (("testset_one", 1), ("testset_two", 2)):
+            with open(os.path.join(data, tlist + ".txt"), "w") as f:
+                f.write("\n".join(shapes[:n]) + "\n")
         print(f"dataset: {len(shapes)} shapes x {N_POINTS} points, built in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1860,21 +2237,21 @@ def main(argv=None) -> int:
               f"weights), PGP10 {summary['pgp10']:.4f}", flush=True)
         dev_sparse["rms"] = summary["rms"]
 
-        # ---- 8. host extraction, routed ----
+        # ---- 8. host extraction, routed, on two shapes ----
         host_sparse = serve("host-sparse", lambda: predict_shapes(
-            rd.path, dataset_name="pcpnet_sparse", testset="testset.txt", data_path=data,
+            rd.path, dataset_name="pcpnet_sparse", testset="testset_two.txt", data_path=data,
             batch_size=HOST_BATCH, loader_workers=8, moe_inference="sparse"), kernels, card)
         host_sparse["rms"] = check_outputs(
-            data, host_sparse["output_dir"], "testset", N_EXPERTS)["rms"]
+            data, host_sparse["output_dir"], "testset_two", N_EXPERTS)["rms"]
 
-        # ---- 9. host extraction, dense, on two shapes ----
+        # ---- 9. host extraction, dense, on one shape ----
         host_dense = serve("host-dense", lambda: predict_shapes(
-            rd.path, dataset_name="pcpnet_dense", testset="testset_two.txt", data_path=data,
+            rd.path, dataset_name="pcpnet_dense", testset="testset_one.txt", data_path=data,
             batch_size=HOST_BATCH, loader_workers=8, moe_inference="dense"), kernels, card)
         host_dense["rms"] = check_outputs(
-            data, host_dense["output_dir"], "testset_two", N_EXPERTS)["rms"]
-        print(f"evaluate: RMS host-sparse {host_sparse['rms']:.4f} deg, host-dense "
-              f"(two shapes) {host_dense['rms']:.4f} deg (random weights)", flush=True)
+            data, host_dense["output_dir"], "testset_one", N_EXPERTS)["rms"]
+        print(f"evaluate: RMS host-sparse (two shapes) {host_sparse['rms']:.4f} deg, host-dense "
+              f"(one shape) {host_dense['rms']:.4f} deg (random weights)", flush=True)
 
         # one device batch routed and dense; one host batch on the plain MuPS
         _, _, _, model = load_run(rd.path, dev)
@@ -2037,6 +2414,10 @@ def main(argv=None) -> int:
         # ---- 15. the scan, the CLIs, the MuPS variants ----
         scan = phase15a(tmp, rd.path, kernels, card)
         tools = phase15b(tmp, data, rd.path, shapes, dev, kernels)
+
+        # ---- 16. data parallelism: an NCCL world of one, two gloo ranks on the card ----
+        dp = phase16(tmp, data, dev, train_cfg, run_gmm, rd.path, dev_sparse,
+                     dtype_runs["int8+fold"], kernels, card)
         if "jax" in sys.modules:
             fail("jax was imported")
 
@@ -2057,7 +2438,7 @@ def main(argv=None) -> int:
         "routed_vs_dense_normals_max_abs_err": route_err,
         "batch_normals_max_abs_err": nerr,
         "ablations": ablations, "jax_run_dir_on_card": jax_fixture,
-        "scan": scan, "cli_tools": tools,
+        "scan": scan, "cli_tools": tools, "data_parallel": dp,
     })
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)
@@ -2080,6 +2461,7 @@ def main(argv=None) -> int:
             "launches_scan": scan["launches"]["tdmfv_n_est"],
             "launches_test_all": tools["launches"],
             "launches_traced_epoch": trained["trace_mups_kernel_events"],
+            "launches_data_parallel": dp_launches(dp, "tdmfv_n_est"),
             "max_abs_err": k1_err,
             "ms": k1_ms[R],
             "plain_ms": plain_ms[R],
@@ -2096,6 +2478,7 @@ def main(argv=None) -> int:
             "source": "nestinet_tpu_torch/csrc/mups_kernel.cu",
             "replaces": "scripts/mups_kernel_exp.py:32",
             "launches": exp_launches["tdmfv_n_est_blocked"],
+            "launches_data_parallel": dp_launches(dp, "tdmfv_n_est_blocked"),
             "max_abs_err": k2_err,
             "ms": blocked[max(BLOCKS)],
             "plain_ms": plain_ms[R],
@@ -2115,6 +2498,7 @@ def main(argv=None) -> int:
             "launches_int8_fold": dtype_runs["int8+fold"]["launches"]["int8_conv3d"],
             "launches_ss_int8_fold":
                 ablations["ss_norm_est"]["serving"]["int8+fold"]["launches"]["int8_conv3d"],
+            "launches_data_parallel": dp_launches(dp, "int8_conv3d"),
             "max_abs_err": i8_err,
             "ms": i8_widest["ms"],
             "plain_ms": i8_widest["plain_ms"],

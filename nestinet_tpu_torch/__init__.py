@@ -21,18 +21,20 @@ Layout (each module mirrors its counterpart in `nestinet_tpu/`):
               host C++ sources, built with g++ at first use
     models/   backbone specs, the experts_n_est mixture of experts, losses
     train/    lr and BN-decay schedules, the train and eval steps, the
-              trainer (epochs, validation RMS, checkpoints, resume)
+              trainer (epochs, validation RMS, checkpoints, resume), the
+              data mesh and its collectives, the multi-process launcher
     infer/    streaming whole-shape inference (host or device extraction,
               routed or dense MoE) + .normals writer
     cli/      the training and inference CLIs
     scripts/  the blocked-MuPS-kernel experiment
     convert   haiku <-> torch weight conversion
 
-Ported so far: training `experts_n_est` on one GPU in float32 or
-bfloat16 (the MuPS CUDA kernel in every train and eval step), and serving
-its run dir in float32, bfloat16 or int8 (optionally with BatchNorm
-folded), with argmax-only (sparse) or dense mixture-of-experts inference
-and host (kd-tree) or device (grid-hash ball query) patch extraction.
+Ported so far: training every model family in float32 or bfloat16 (the
+MuPS CUDA kernel in every train and eval step) on one GPU or data-parallel
+on several ranks, and serving its run dir in float32, bfloat16 or int8
+(optionally with BatchNorm folded), with argmax-only (sparse) or dense
+mixture-of-experts inference and host (kd-tree) or device (grid-hash ball
+query) patch extraction, on one GPU or data-parallel.
 """
 
 __version__ = "0.1.0"

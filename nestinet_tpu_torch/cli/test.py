@@ -22,8 +22,11 @@ default: the run config), the mixture of experts routed (sparse, the
 default) or dense and the other models dense (`--moe_inference` is then
 ignored), with host (kd-tree) or device (grid-hash ball query) patch
 extraction, on every point or on the `.pidx` subsets
-(`--sparse_patches=1`).  Data-parallel serving (`--data_parallel > 1`)
-raises: one GPU serves.
+(`--sparse_patches=1`).  `--data_parallel N` serves on N ranks (one a
+GPU; `--device cpu` runs them on the CPU over gloo, `--backend gloo` lets
+CUDA ranks share one GPU): each rank serves whole batches, round-robin,
+and rank 0 writes the files, which equal one process's.  The batch size
+must divide by N, as in JAX.
 """
 
 from __future__ import annotations
@@ -36,11 +39,15 @@ from ..core.rundir import RunDir
 from ..infer.device_pipeline import predict_shapes_device
 from ..infer.predict import MOE_INFERENCE, predict_shapes
 from ..models.base import COMPUTE_DTYPES
+from ..train import distributed
 
 MODEL_CHOICES = ("ss_norm_est", "ms_norm_est", "ms_sw_n_est", "experts_n_est")
 
 
-def main(argv=None):
+def main(argv=None, timeout: float | None = None):
+    """Serve as the flags say; returns the stats it prints.  `timeout`:
+    seconds after which the data-parallel ranks are killed
+    (`distributed.launch`); None waits."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--results_path", default="log/my_experts",
@@ -67,7 +74,10 @@ def main(argv=None):
                    help="CNN compute dtype for serving (parameters stay float32); "
                         "int8 runs the convs and linears on the int8 kernel")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="not ported: only one GPU serves")
+                   help="ranks (one a GPU) that serve whole batches; 0 = one")
+    p.add_argument("--backend", type=str, default=None, choices=list(distributed.BACKENDS),
+                   help="the data-parallel backend: nccl on CUDA and gloo on the CPU by "
+                        "default; gloo on CUDA lets ranks share one GPU (smoke tests)")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="cuda (the default) raises without a GPU; cpu only when asked")
     p.add_argument("--fold_bn", type=int, default=None,
@@ -78,11 +88,10 @@ def main(argv=None):
         run_model = Config.load(RunDir.open(args.results_path).config_path).model
         if run_model != args.model:
             raise ValueError(f"--model {args.model}: the run dir holds {run_model}")
-    if args.data_parallel > 1:
-        raise NotImplementedError(
-            f"--data_parallel={args.data_parallel} is not ported to PyTorch yet; "
-            "only one GPU (see ROADMAP.md)"
-        )
+    data_parallel = max(args.data_parallel, 0) or 1
+    if args.batch_size % data_parallel:
+        raise ValueError(f"--batch_size {args.batch_size} must divide by --data_parallel "
+                         f"{data_parallel}")
 
     common = dict(
         dataset_name=args.dataset_name,
@@ -93,14 +102,18 @@ def main(argv=None):
         moe_inference=args.moe_inference,
         compute_dtype=args.compute_dtype,
         fold_bn=None if args.fold_bn is None else bool(args.fold_bn),
+        data_parallel=data_parallel,
         device=args.device,
     )
     if args.extraction == "device":
-        stats = predict_shapes_device(args.results_path, **common)
+        fn = predict_shapes_device
     else:
-        stats = predict_shapes(args.results_path, loader_workers=args.loader_workers,
-                               **common)
+        fn = predict_shapes
+        common["loader_workers"] = args.loader_workers
+    stats = distributed.launch(fn, data_parallel, (args.results_path,), common,
+                               device=args.device, backend=args.backend, timeout=timeout)
     print(json.dumps({k: v for k, v in stats.items() if k != "shapes"}, indent=2))
+    return stats
 
 
 if __name__ == "__main__":

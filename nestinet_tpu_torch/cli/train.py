@@ -4,7 +4,9 @@
 Trains `--model` (the mixture of experts `experts_n_est`, the default, or
 the ablations `ss_norm_est`, `ms_norm_est` and `ms_sw_n_est`; the last reads
 per-shape noise levels, `<list>_noise_levels.txt`, as its `noise` target)
-on one GPU, in float32 (the default, as in JAX) or bfloat16, into a run
+on one GPU or, with `--data_parallel N`, on N ranks (one a GPU, started
+by `train/distributed.py::launch`; `--device cpu` runs them on the CPU over
+gloo), in float32 (the default, as in JAX) or bfloat16, into a run
 directory that `nestinet_tpu_torch.cli.test` serves: the
 periodic checkpoint `ckpt_torch/` (every `--checkpoint_every` epochs and
 the last), the best-validation checkpoint `ckpt_torch_best/`, which
@@ -14,7 +16,11 @@ checkpoint, the port's or, in a run dir the JAX trainer wrote, JAX's
 `ckpt/`.  `--profile_epoch N` traces epoch N's train loop with
 `torch.profiler` into `<run>/profile/`; every epoch's scalars are also
 written as TensorBoard events into `<run>/tb/`.
-`--data_parallel`/`--expert_parallel` > 1 raise: one GPU trains.
+`--data_parallel N` is the global number of data shards, as in JAX
+(`max(N, 0) or 1`); the batch size is the global batch and must divide by
+N.  `--backend gloo` puts CUDA ranks on gloo, which lets several ranks
+share one GPU (a smoke test's use; NCCL, the default on CUDA, needs a GPU
+a rank).  `--expert_parallel` > 1 raises NotImplementedError.
 `--mups_impl` is kept for the run config and ignored: the MuPS CUDA
 kernel runs on the card.
 
@@ -36,6 +42,8 @@ import json
 from ..core import checkpoint as ckpt_lib
 from ..core.config import Config
 from ..core.rundir import RunDir
+from ..train import distributed
+from ..train.mesh import check_expert_parallel
 from ..train.trainer import Trainer
 from .test import MODEL_CHOICES
 
@@ -75,7 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
                            '"4": "[2]", "5": "[2]", "6": "[0, 1, 2]"}')
     p.add_argument("--seed", type=int, default=3627473)
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="GPUs on the data axis (0 = one); > 1 is not ported")
+                   help="ranks (one a GPU) on the data axis; 0 = one")
     p.add_argument("--expert_parallel", type=int, default=1,
                    help="> 1 is not ported")
     p.add_argument("--compute_dtype", type=str, default="float32",
@@ -91,6 +99,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="kept in the run config for the JAX package; ignored here")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="cuda (the default) raises without a GPU; cpu only when asked")
+    p.add_argument("--backend", type=str, default=None, choices=list(distributed.BACKENDS),
+                   help="the data-parallel backend: nccl on CUDA and gloo on the CPU by "
+                        "default; gloo on CUDA lets ranks share one GPU (smoke tests)")
     return p
 
 
@@ -135,21 +146,31 @@ def config_from_args(args) -> Config:
     )
 
 
-def main(argv=None):
+def main(argv=None, timeout: float | None = None):
+    """`timeout`: seconds after which the data-parallel ranks are killed
+    (`distributed.launch`); None waits."""
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     if args.model == "ms_sw_n_est" and "noise" not in cfg.outputs:
         cfg.outputs = tuple(cfg.outputs) + ("noise",)  # JAX `cli/train.py:131-132`
+    check_expert_parallel(cfg.expert_parallel)
+    distributed.launch(train, cfg.data_parallel,
+                       (cfg, bool(args.resume), args.loader_workers, args.device),
+                       device=args.device, backend=args.backend, timeout=timeout)
+
+
+def train(cfg: Config, resume: bool, loader_workers: int, device: str) -> None:
+    """Train `cfg` in this process (one rank of a data-parallel run)."""
     # --resume must re-open an existing run dir: RunDir.create numbers a
     # fresh sibling on collision (log_dir/1, /2, ...) and would start a new
     # run next to the checkpoint it was asked to resume.  Re-open iff the
-    # target dir already holds a periodic checkpoint (the port's or JAX's).
+    # target dir already holds a periodic checkpoint (the port's or JAX's);
+    # the trainer keeps rank 0's choice.
     run_dir = None
-    if args.resume and ckpt_lib.resumable(args.log_dir):
-        run_dir = RunDir.open(args.log_dir)
-    trainer = Trainer(cfg, run_dir=run_dir, loader_workers=args.loader_workers,
-                      device=args.device)
-    trainer.fit(resume=bool(args.resume))
+    if resume and ckpt_lib.resumable(cfg.log_dir):
+        run_dir = RunDir.open(cfg.log_dir)
+    trainer = Trainer(cfg, run_dir=run_dir, loader_workers=loader_workers, device=device)
+    trainer.fit(resume=resume)
 
 
 if __name__ == "__main__":

@@ -21,6 +21,10 @@ reference's contract, `train_n_est_w_experts.py:97-125, 354`):
 
 Collision behavior matches the reference: an existing log_dir gets
 auto-numbered subdirectories 1, 2, ...
+
+In data-parallel training every rank holds the run dir, and only rank 0
+writes its files: the other ranks open it with `writer=False`, which makes
+`write_description`, `log` and `metrics` no-ops.
 """
 
 from __future__ import annotations
@@ -34,8 +38,9 @@ from .tb import EventWriter
 
 
 class RunDir:
-    def __init__(self, path: str):
+    def __init__(self, path: str, writer: bool = True):
         self.path = path
+        self.writer = writer
         os.makedirs(path, exist_ok=True)
         os.makedirs(self.ckpt_dir, exist_ok=True)
         self._log_file = None
@@ -92,11 +97,15 @@ class RunDir:
 
     # ---- artifacts ----
     def write_description(self, desc: str) -> None:
+        if not self.writer:
+            return
         with open(os.path.join(self.path, "description.txt"), "w") as f:
             f.write(desc + "\n")
 
     def log(self, msg: str) -> None:
         """Append to log_train.txt and echo to stdout (thread-safe)."""
+        if not self.writer:
+            return
         with self._io_lock:
             if self._log_file is None:
                 self._log_file = open(
@@ -111,6 +120,8 @@ class RunDir:
         numeric values to the TensorBoard event file under tags
         `<kind>/<key>`, stepped by the record's `step` when present
         (thread-safe)."""
+        if not self.writer:
+            return
         with self._io_lock:
             if self._metrics_file is None:
                 self._metrics_file = open(

@@ -30,6 +30,9 @@ from .dataset import (
 )
 
 
+SHARD_KINDS = ("rows", "batches")
+
+
 def _stack_items(items: list[dict]) -> dict:
     batch = {}
     for key in items[0]:
@@ -38,7 +41,18 @@ def _stack_items(items: list[dict]) -> dict:
 
 
 class BatchIterator:
-    """Iterates dict batches over (dataset, sampler)."""
+    """Iterates dict batches over (dataset, sampler).
+
+    `shard` = (rank, ranks, kind) makes this a data-parallel rank's loader:
+    every rank walks the whole sampler (the index sequence is cheap) and
+    extracts only its own items, which equal the one-process loader's
+    (their seeds depend on the item alone, `PatchDataset._item_seed`):
+      * "rows" (training): this rank's contiguous rows of every global
+        batch of `batch_size` (`train/distributed.py::host_batch_slice`);
+        needs `drop_last` and a batch size that divides by `ranks`;
+      * "batches" (serving): the whole global batches i with
+        i % ranks == rank, in order.
+    """
 
     def __init__(
         self,
@@ -49,6 +63,7 @@ class BatchIterator:
         workers: int = 0,
         prefetch: int = 2,
         drop_last: bool = False,
+        shard: tuple[int, int, str] | None = None,
     ):
         self.dataset = dataset
         self.sampler = sampler
@@ -56,13 +71,25 @@ class BatchIterator:
         self.workers = int(workers)
         self.prefetch = int(prefetch)
         self.drop_last = drop_last
+        if shard is not None:
+            rank, ranks, kind = shard
+            if kind not in SHARD_KINDS or not 0 <= rank < ranks:
+                raise ValueError(f"bad shard {shard}: (rank, ranks, one of {SHARD_KINDS})")
+            if kind == "rows" and (self.batch_size % ranks or not drop_last):
+                raise ValueError(f"row shards need drop_last and a batch size that divides "
+                                 f"by {ranks}, got {self.batch_size}")
+        self.shard = shard
         self._pool = ThreadPoolExecutor(workers) if workers > 0 else None
 
     def __len__(self):
         n = len(self.sampler)
         if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+            n = n // self.batch_size
+        else:
+            n = (n + self.batch_size - 1) // self.batch_size
+        if self.shard is not None and self.shard[2] == "batches":
+            return len(range(self.shard[0], n, self.shard[1]))
+        return n
 
     def _make_batch(self, indices) -> dict:
         if self._pool is not None:
@@ -71,15 +98,29 @@ class BatchIterator:
             items = [self.dataset[i] for i in indices]
         return _stack_items(items)
 
+    def _mine(self, i: int, indices: list) -> list:
+        """This rank's indices of global batch i."""
+        if self.shard is None:
+            return indices
+        rank, ranks, kind = self.shard
+        if kind == "batches":
+            return indices if i % ranks == rank else []
+        per = len(indices) // ranks
+        return indices[rank * per:(rank + 1) * per]
+
     def _batches(self):
-        indices = []
+        indices, i = [], 0
         for idx in self.sampler:
             indices.append(int(idx))
             if len(indices) == self.batch_size:
-                yield self._make_batch(indices)
-                indices = []
+                mine = self._mine(i, indices)
+                if mine:
+                    yield self._make_batch(mine)
+                indices, i = [], i + 1
         if indices and not self.drop_last:
-            yield self._make_batch(indices)
+            mine = self._mine(i, indices)
+            if mine:
+                yield self._make_batch(mine)
 
     def __iter__(self):
         if self.prefetch <= 0:
@@ -130,11 +171,13 @@ def get_data_loader(
     sparse_patches: bool = False,
     drop_last: bool = False,
     use_native: bool = True,
+    shard: tuple[int, int, str] | None = None,
 ) -> tuple[BatchIterator, PatchDataset]:
     """Mirror of the reference's loader factory (`provider.py:319-429`).
 
     `outputs` uses the reference vocabulary: 'unoriented_normals' /
-    'oriented_normals' -> normal targets, 'noise'.
+    'oriented_normals' -> normal targets, 'noise'.  `shard`: a
+    data-parallel rank's part (`BatchIterator`).
     """
     features = []
     for o in outputs:
@@ -176,6 +219,6 @@ def get_data_loader(
         raise ValueError(f"unknown patch sample order: {patch_sample_order}")
 
     loader = BatchIterator(
-        dataset, sampler, batch_size, workers=workers, drop_last=drop_last
+        dataset, sampler, batch_size, workers=workers, drop_last=drop_last, shard=shard
     )
     return loader, dataset

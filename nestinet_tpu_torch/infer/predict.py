@@ -29,6 +29,17 @@ writes `.normals` only, and `moe_inference` is ignored.
 in JAX; `None` keeps the config's.  The run dir's torch checkpoint is
 served, or the JAX trainer's msgpack checkpoint when it holds no torch one
 (`core/checkpoint.py`).
+
+`data_parallel` (JAX's signature and assert, `:296-313`) serves on that
+many ranks (`train/distributed.py::launch`): each rank extracts and serves
+whole global batches, batch i on rank i mod N (`data/loader.py`, "batches"
+shards), and rank 0 gathers the outputs and writes them in the batches'
+order (`RankOutputs`).  Every batch is the one a single process forms, so
+every int8 activation scale is too, and the files equal one process's
+without a collective inside the model.  JAX instead shards each batch's
+rows over its mesh, where XLA takes the int8 amax over the global batch;
+splitting rows here would need an all-reduce of the amax before each int8
+conv and linear.
 """
 
 from __future__ import annotations
@@ -48,7 +59,10 @@ from ..models import ExpertsNormEst, SwitchingNormEst, build_model
 from ..models.switching import NOISE_SWITCH_THRESHOLD
 from ..ops.fold import fold_bn_
 from ..ops.gmm import GridGMM
+from ..ops.kernels import int8_cuda, mups_cuda
 from ..ops.quant import quantize_
+from ..train import distributed
+from ..train.mesh import make_mesh
 from .writer import ShapeScatterWriter
 
 
@@ -177,6 +191,59 @@ def serving_stats(model, cfg, rows: np.ndarray) -> dict:
     return out
 
 
+def kernel_launches() -> dict:
+    """The CUDA kernels' launch counts so far, by kernel."""
+    return {**mups_cuda.KERNEL.launches, **int8_cuda.KERNEL.launches}
+
+
+class RankOutputs:
+    """Where a serving call's batches go.  One process: straight to the
+    writer (`append_outputs`).  A data-parallel rank keeps the outputs of
+    the global batches it serves (batch i on rank i mod N) until `finish`,
+    where rank 0 gathers every rank's and writes them in the global order.
+    `make_writer` builds the writer, on rank 0 only."""
+
+    def __init__(self, mesh, make_writer, rows: np.ndarray):
+        self.mesh = mesh
+        self.rows = rows
+        self.writer = make_writer() if mesh.is_main else None
+        self.parts: list = []
+        self.n_patches = self.n_batches = 0
+        self._launches = kernel_launches()
+
+    def add(self, normals, experts, probs) -> None:
+        self.n_patches += normals.shape[0]
+        self.n_batches += 1
+        if self.mesh.size == 1:
+            append_outputs(self.writer, self.rows, normals, experts, probs)
+            return
+        out = tuple(None if t is None else t.cpu().numpy() for t in (normals, experts, probs))
+        if out[1] is not None:
+            self.rows += np.bincount(out[1], minlength=self.rows.shape[0])
+        self.parts.append(out)
+
+    def finish(self) -> dict | None:
+        """Rank 0: writes the gathered outputs and returns the call's counts
+        (`n_patches`, `n_batches`, the summed `rows`, and `per_rank`: each
+        rank's patches, batches and kernel launches); None on the others."""
+        launches = {k: v - self._launches[k] for k, v in kernel_launches().items()}
+        mine = {"n_patches": self.n_patches, "n_batches": self.n_batches,
+                "launches": launches}
+        gathered = self.mesh.gather_to_main((self.parts, self.rows, mine))
+        if not self.mesh.is_main:
+            return None
+        if self.mesh.size > 1:
+            parts = [g[0] for g in gathered]
+            for i in range(sum(map(len, parts))):
+                self.writer.append(*parts[i % self.mesh.size][i // self.mesh.size])
+        if not self.writer.done:
+            raise RuntimeError("the writer did not receive every shape's patches")
+        per_rank = [g[2] for g in gathered]
+        return {"n_patches": sum(r["n_patches"] for r in per_rank),
+                "n_batches": sum(r["n_batches"] for r in per_rank),
+                "rows": sum(g[1] for g in gathered), "per_rank": per_rank}
+
+
 def check_moe_inference(moe_inference: str) -> None:
     if moe_inference not in MOE_INFERENCE:
         raise ValueError(f"moe_inference must be one of {MOE_INFERENCE}, got {moe_inference!r}")
@@ -195,12 +262,33 @@ def predict_shapes(
     moe_inference: str = "sparse",
     compute_dtype: str | None = None,
     fold_bn: bool | None = None,
+    data_parallel: int = 1,
     device: str | torch.device = "cuda",
+    backend: str | None = None,
 ) -> dict:
     """Inference with host patch extraction for every shape in `testset`
     (or each shape's `.pidx` subset with `sparse_patches`); returns stats,
-    with the patches each expert or branch served (`serving_stats`)."""
+    with the patches each expert or branch served (`serving_stats`) and
+    each rank's patches and kernel launches (`per_rank`).  `data_parallel`
+    > 1 serves on that many ranks (`backend` as in `distributed.launch`),
+    whole batches each, and returns rank 0's stats."""
     check_moe_inference(moe_inference)
+    if data_parallel > 1:
+        assert batch_size % data_parallel == 0, "batch_size must divide by data_parallel"
+    kwargs = dict(dataset_name=dataset_name, testset=testset, data_path=data_path,
+                  batch_size=batch_size, sparse_patches=sparse_patches,
+                  loader_workers=loader_workers, output_dir=output_dir,
+                  moe_inference=moe_inference, compute_dtype=compute_dtype, fold_bn=fold_bn,
+                  data_parallel=data_parallel, device=device)
+    return distributed.launch(_predict_shapes, data_parallel, (run_dir,), kwargs,
+                              device=device, backend=backend)
+
+
+def _predict_shapes(run_dir: str, *, dataset_name, testset, data_path, batch_size,
+                    sparse_patches, loader_workers, output_dir, moe_inference, compute_dtype,
+                    fold_bn, data_parallel, device) -> dict | None:
+    """`predict_shapes` in this process: one rank of `data_parallel`."""
+    mesh = make_mesh(data_parallel)
     dev = resolve_device(device)
     set_f32_numerics()
     rd, cfg, gmm, model = load_run(run_dir, dev, compute_dtype, fold_bn)
@@ -219,14 +307,13 @@ def predict_shapes(
         cache_capacity=cfg.cache_capacity,
         workers=loader_workers,
         sparse_patches=sparse_patches,
+        shard=(mesh.rank, mesh.size, "batches") if mesh.size > 1 else None,
     )
-    writer = ShapeScatterWriter(
+    outputs = RankOutputs(mesh, lambda: ShapeScatterWriter(
         out_dir, dataset.shape_names, dataset.shape_patch_count,
         n_experts=cfg.n_experts if is_moe(model) else None,
-    )
+    ), route_rows(model, cfg))
 
-    n_patches = n_batches = 0
-    rows = route_rows(model, cfg)
     loader_wait = 0.0
     t0 = time.perf_counter()
     batches = iter(loader)
@@ -242,22 +329,18 @@ def predict_shapes(
             points = torch.from_numpy(batch["points"]).to(dev)
             n_eff = torch.from_numpy(batch["n_eff"].astype(np.int32)).to(dev)
             grid = model.mups_grid(points, n_eff)
-            normals, experts, probs = serve_grid(model, grid, real, moe_inference, rows)
-            append_outputs(writer, rows, normals, experts, probs)
-            n_patches += real
-            n_batches += 1
+            outputs.add(*serve_grid(model, grid, real, moe_inference, outputs.rows))
+    counts = outputs.finish()
     elapsed = time.perf_counter() - t0
-
-    if not writer.done:
-        raise RuntimeError("the writer did not receive every shape's patches")
-    return serving_stats(model, cfg, rows) | {
-        "n_patches": n_patches,
-        "n_batches": n_batches,
+    if counts is None:
+        return None
+    return serving_stats(model, cfg, counts.pop("rows")) | counts | {
         "seconds": elapsed,
         "loader_wait_seconds": loader_wait,
-        "patches_per_sec": n_patches / elapsed if elapsed > 0 else float("inf"),
+        "patches_per_sec": counts["n_patches"] / elapsed if elapsed > 0 else float("inf"),
         "moe_inference": moe_inference,
-        "shapes": writer.written,
+        "data_parallel": mesh.size,
+        "shapes": outputs.writer.written,
         "output_dir": out_dir,
         "device": str(dev),
     }

@@ -83,7 +83,15 @@ class BatchNormEMA(nn.Module):
     the momentum passed per call, `ema = m*ema + (1-m)*moment`, `bias =
     m*bias`, outside autograd.  Eval: the debiased EMA moments in float32,
     cast to x.dtype.  Both then take JAX's casts: inv = gamma * rsqrt(var +
-    1e-3) and (x - mean) * inv + beta in x.dtype."""
+    1e-3) and (x - mean) * inv + beta in x.dtype.
+
+    Data-parallel training (`set_moment_sum`): the moments are the global
+    batch's, as JAX's `jnp.mean` / `jnp.var` of a batch sharded over the
+    data axis are.  `moment_sum` sums over the ranks and autograd
+    differentiates it (`train/mesh.py::DataMesh.sum`): the per-channel sums
+    and the row count give the mean, then the sums of squared deviations
+    from it the variance, so every rank normalizes with the same moments,
+    its backward sees them, and the EMA buffers stay equal on every rank."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -92,13 +100,26 @@ class BatchNormEMA(nn.Module):
         self.register_buffer("ema_mean", torch.zeros(channels))
         self.register_buffer("ema_var", torch.zeros(channels))
         self.register_buffer("bias", torch.ones(()))
+        self.moment_sum = None  # the data group's sum, or None: local moments
+
+    def _global_moments(self, xf: torch.Tensor, axes: list):
+        shape = (1, -1) + (1,) * (xf.dim() - 2)
+        sums = xf.sum(dim=axes)
+        total = self.moment_sum(torch.cat([sums, sums.new_full((1,), xf.numel() / sums.numel())]))
+        count = total[-1]
+        mean = total[:-1] / count
+        var = self.moment_sum(torch.square(xf - mean.view(shape)).sum(dim=axes)) / count
+        return mean, var
 
     def forward(self, x: torch.Tensor, training: bool = False, momentum=None) -> torch.Tensor:
         if training:
             xf = x.float()
             axes = [0] + list(range(2, x.dim()))  # every axis but channels
-            mean = xf.mean(dim=axes)
-            var = xf.var(dim=axes, unbiased=False)
+            if self.moment_sum is None:
+                mean = xf.mean(dim=axes)
+                var = xf.var(dim=axes, unbiased=False)
+            else:
+                mean, var = self._global_moments(xf, axes)
             with torch.no_grad():
                 m = torch.as_tensor(momentum, dtype=torch.float32, device=x.device)
                 self.ema_mean.copy_(m * self.ema_mean + (1.0 - m) * mean)
@@ -116,6 +137,14 @@ class BatchNormEMA(nn.Module):
         inv = self.gamma.to(x.dtype) * torch.rsqrt(var.float()).to(x.dtype)
         shape = (1, -1) + (1,) * (x.dim() - 2)  # channels on axis 1
         return (x - mean.view(shape)) * inv.view(shape) + self.beta.to(x.dtype).view(shape)
+
+
+def set_moment_sum(module: nn.Module, moment_sum) -> None:
+    """Give every BatchNormEMA of `module` the data group's autograd-aware
+    sum (global training moments), or None (this process's batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNormEMA):
+            m.moment_sum = moment_sum
 
 
 def _batch_norm(bn: nn.Module, x: torch.Tensor, training: bool, momentum):
@@ -353,18 +382,26 @@ class Dropout:
     U[0, 1) < 1 - rate in float32, drawn from `generator` (None: torch's
     default generator of the input's device), or, when `masks` is given,
     the next of those bool tensors in call order (a test replays JAX's
-    masks this way)."""
+    masks this way).  A data-parallel rank gives `shard` = (global batch,
+    its rows): each mask is the global batch's, drawn or given whole, and
+    the rank keeps its rows, so the ranks together drop what one process
+    drops."""
 
-    def __init__(self, generator: torch.Generator | None = None, masks=None):
+    def __init__(self, generator: torch.Generator | None = None, masks=None,
+                 shard: tuple[int, slice] | None = None):
         self.generator = generator
         self.masks = None if masks is None else list(masks)
+        self.shard = shard
 
     def __call__(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         keep_rate = 1.0 - rate
         if self.masks is not None:
             keep = self.masks.pop(0).to(device=x.device, dtype=torch.bool)
         else:
-            keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_rate
+            shape = x.shape if self.shard is None else (self.shard[0], *x.shape[1:])
+            keep = torch.rand(shape, generator=self.generator, device=x.device) < keep_rate
+        if self.shard is not None:
+            keep = keep[self.shard[1]]
         # haiku's keep * x / keep_rate; the divisor is a 0-d tensor, as a
         # Python float becomes a multiply by its reciprocal on CUDA
         return keep * x / torch.tensor(keep_rate, dtype=x.dtype, device=x.device)

@@ -46,14 +46,16 @@ def _device_batch(model, batch: dict) -> dict:
     return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
 
 
-def step_dropout(cfg, step: int, device) -> Dropout:
+def step_dropout(cfg, step: int, device, shard: tuple[int, slice] | None = None) -> Dropout:
     """The dropout masks of train step `step`: a generator on `device`
-    seeded by (cfg.seed + 1, step)."""
+    seeded by (cfg.seed + 1, step); a data-parallel rank passes `shard`
+    (global batch, its rows) and keeps its rows of the global masks."""
     seed = int(np.random.SeedSequence([cfg.seed + 1, step]).generate_state(1)[0])
-    return Dropout(torch.Generator(device=device).manual_seed(seed))
+    return Dropout(torch.Generator(device=device).manual_seed(seed), shard=shard)
 
 
-def make_train_step(model, cfg, optimizer: torch.optim.Optimizer, metrics: dict | None = None):
+def make_train_step(model, cfg, optimizer: torch.optim.Optimizer, metrics: dict | None = None,
+                    mesh=None):
     """Returns train_step(batch, step, dropout_masks=None) -> the loss (a
     0-d tensor on the device, not synchronized).  `batch` holds points,
     n_eff, normals and, for the switching model, noise; `step` is the
@@ -62,9 +64,25 @@ def make_train_step(model, cfg, optimizer: torch.optim.Optimizer, metrics: dict 
     `dropout_masks` is given).  The step updates the parameters and the
     BatchNorm state in place and leaves the gradients in `.grad`.  With
     `metrics`, each step appends its scalar metrics other than the loss
-    (the switching model's noise_loss), detached, to metrics[name]."""
+    (the switching model's noise_loss), detached, to metrics[name].
+
+    With a data mesh (`train/mesh.py`) in a process group, `batch` is this
+    rank's rows of the global batch and the step is the global batch's, as
+    JAX's sharded step is: BatchNorm takes the global moments (the caller
+    gives the model the mesh's sum, `ops/nn.py::set_moment_sum`), dropout
+    keeps this rank's rows of the global masks, and the gradients, the loss
+    and the metrics are averaged over the ranks in one flat all-reduce
+    before the update.  The ranks hold equal rows, so the average of their
+    mean losses is the global batch's mean loss; `l2_weight_penalty`, the
+    same on every rank, is averaged to itself and counts once.  One flat
+    all-reduce rather than DDP: the step stays the single-process step plus
+    one collective, bit for bit that step on a world of one, and the loss
+    and the metrics ride in the same buffer; DDP's bucketed all-reduce
+    would overlap the backward on several GPUs, which this card does not
+    have to measure."""
     bn_sched = bn_momentum_schedule(cfg)
     lr_sched = learning_rate_schedule(cfg)
+    parallel = mesh is not None and mesh.parallel
 
     def train_step(batch: dict, step: int, dropout_masks: Dropout | None = None) -> torch.Tensor:
         batch = _device_batch(model, batch)
@@ -73,19 +91,25 @@ def make_train_step(model, cfg, optimizer: torch.optim.Optimizer, metrics: dict 
             group["lr"] = lr
         optimizer.zero_grad(set_to_none=True)
         if dropout_masks is None:
-            dropout_masks = step_dropout(cfg, step, batch["points"].device)
+            rows = batch["points"].shape[0]
+            shard = (rows * mesh.size, mesh.rows(rows * mesh.size)) if parallel else None
+            dropout_masks = step_dropout(cfg, step, batch["points"].device, shard)
         outputs = model(batch["points"], batch["n_eff"], training=True,
                         bn_momentum=bn_sched(step), dropout_masks=dropout_masks)
         loss, aux = model.loss(outputs, batch)
         if cfg.weight_decay > 0.0:
             loss = loss + cfg.weight_decay * l2_weight_penalty(model)
         loss.backward()
+        scalars = {"loss": loss.detach(),
+                   **{k: v.detach() for k, v in aux.items() if k != "cos_ang"}}
+        if parallel:
+            scalars = mesh.mean_gradients_(model.parameters(), scalars)
         optimizer.step()
         if metrics is not None:
-            for name, value in aux.items():
-                if name != "cos_ang":
-                    metrics.setdefault(name, []).append(value.detach())
-        return loss.detach()
+            for name, value in scalars.items():
+                if name != "loss":
+                    metrics.setdefault(name, []).append(value)
+        return scalars["loss"]
 
     return train_step
 

@@ -163,12 +163,23 @@ def test_slice_rms_matches_jax(served):
     assert abs(got["rms"] - want["rms"]) < 0.01
 
 
-@pytest.mark.parametrize("flag", ["--data_parallel=2"])
-def test_cli_refuses_unported_modes(flag):
+def test_cli_serves_data_parallel(served):
+    """`cli.test --data_parallel 2` serves on two gloo ranks and writes the
+    one-process files byte for byte."""
     from nestinet_tpu_torch.cli import test as cli_test
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli_test.main(["--results_path=unused", flag])
+    data, _, port_stats = served
+    run_path = os.path.join(os.path.dirname(port_stats["output_dir"]), "run")
+    cli_test.main(["--results_path", run_path, "--dataset_path", data, "--testset",
+                   "testset.txt", "--batch_size", str(BATCH), "--moe_inference", "dense",
+                   "--compute_dtype", "float32", "--loader_workers", "2", "--data_parallel",
+                   "2", "--device", "cpu"], timeout=300)
+    out_dir = os.path.join(run_path, "pcpnet_results")
+    for shape in port_stats["shapes"]:
+        for ext in (".normals", ".experts", ".experts_probs"):
+            with open(os.path.join(out_dir, shape + ext), "rb") as a, open(
+                    os.path.join(port_stats["output_dir"], shape + ext), "rb") as b:
+                assert a.read() == b.read(), (shape, ext)
 
 
 def test_cli_refuses_an_unknown_dtype(capsys):

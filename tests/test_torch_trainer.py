@@ -212,7 +212,6 @@ def test_one_write_fills_both_slots(tmp_path):
 
 def test_trainer_refuses_what_is_not_ported(data, tmp_path):
     for bad, exc in ((dict(compute_dtype="int8"), ValueError),
-                     (dict(data_parallel=2), NotImplementedError),
                      (dict(expert_parallel=2), NotImplementedError)):
         with pytest.raises(exc):
             Trainer(tiny_cfg(data, str(tmp_path / "r"), **bad), device="cpu")
