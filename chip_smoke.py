@@ -85,7 +85,8 @@ and prints no result):
      `python -m nestinet_tpu_torch.cli.train` on the synthetic training and
      validation sets (18 and 6 shapes, 64 patches each, B = 256: 4 steps an
      epoch) for 2 epochs with `--profile_epoch 1`, then `--max_epoch 3
-     --resume 1` in place, then `python -m nestinet_tpu_torch.cli.test
+     --resume 1` in place on 4 of the 18 training shapes (one step), then
+     `python -m nestinet_tpu_torch.cli.test
      --extraction=device` serves the run's best checkpoint on two test
      shapes: finite normals and RMS; the run's TensorBoard events, read with
      the port's own framing and CRC, hold every numeric scalar of its
@@ -151,11 +152,29 @@ and prints no result):
      MuPS launch and no plain backward call a rank and a step, the step
      and its gradient all-reduce timed per rank; `cli.train
      --data_parallel 2 --backend gloo` for one epoch of 13c's sets; `cli.test
-     --data_parallel 2 --backend gloo` over the 6-shape testset with device
-     extraction in float32 (ids identical to phase 7's, normals within
-     1e-4) and in int8 with BatchNorm folded (phase 10's files byte for
-     byte), each rank's patches and launches counted.  Two ranks on one
+     --data_parallel 2 --backend gloo` with device extraction in float32
+     on two of the test shapes (ids identical to phase 7's, normals within
+     1e-4) and in int8 with BatchNorm folded on one (phase 10's files byte
+     for byte), each rank's patches and launches counted.  Two ranks on one
      card measure the data-parallel path's overhead, not its scaling.
+ 17. expert parallelism (`train/mesh.py`'s (data, expert) mesh and expert
+     shards, `models/experts.py`'s expert gather) on the one card: (a) in
+     phase 16b's launch, after its steps, the same two gloo ranks form a
+     1 x 2 mesh: each builds the full-width float32 model from the seed
+     and keeps the manager, 3 of group 0's 6 one-scale experts and the
+     three-scale singleton (117,552,877 parameters a rank), and takes the
+     B = 256 step on all 256 rows, held against the one-process step at
+     phase 13a's bars (the loss, every gradient gathered into the
+     one-process layout, the BatchNorm state at atol 1e-5 and equal on both
+     ranks where both hold it), one MuPS launch and no plain backward call
+     a rank, the step, the expert gather and the gradient all-reduce timed
+     and the peak memory read per rank; (b) `cli.train --expert_parallel 2
+     --backend gloo` for one epoch on 9 of 13c's 18 training shapes (2
+     steps of 256) and 13c's validation set: its checkpoint must hold the
+     one-process layout of 13c's run (keys and shapes of the weights, the
+     BatchNorm state and Adam's moments), and `cli.test` serves it once
+     (device-sparse f32, one shape, launch counts set to 0 before it and
+     read after).
 
 Before phase 16 the whole script ran in about 905 s on an H100 (phases
 1-12 about 300 s, phase 14 about 195 s, phase 15 about 250 s, of its
@@ -168,7 +187,13 @@ served two; `cli.scan` runs on the scan's scene at 1/4 of the
 resolution, held against `predict_scan` on that frame, where it re-served
 the whole frame.  Phase 13 keeps its few steps an epoch and cli.test on
 two shapes.  The scan's frame served in process is not cut: it is
-ScanNet's halved.
+ScanNet's halved.  Phase 17 adds 63-76 s (its steps about 10 s inside
+phase 16b's launch, its cli.train 2 steps on 9 of 13c's 18 training
+shapes, its cli.test one shape); with it the script took 937 s on one
+H100 host and 1,064 s on a slower one, so the depth of phases 13 and 16
+was cut for it: 13c's resumed epoch trains one step (4 of the 18 shapes)
+where it took four, and 16b's `cli.test --data_parallel 2` serves two
+shapes in float32 and one in int8+fold where it served six in each.
 
 Each serving path and the kernels' entry point run with the launch counts
 set to 0 just before and read just after; a kernel of the path that was
@@ -220,6 +245,7 @@ TRAIN_PERTURB_REL = 1e-7
 TRAIN_GRAD_SPREADS = 4.0
 TRAIN_BIAS_RTOL = 1e-4  # a BN-fed bias's error against its kernel's gradient
 TRAIN_PATCHES_PER_SHAPE = 64  # 18 training shapes: 4 steps of 256 an epoch
+RESUME_TRAIN_SHAPES = 4  # 13c's resumed epoch: 4 of the 18 shapes, one step
 # phase 14, the ablation models
 FLAGSHIP_RADII = (0.01, 0.03, 0.05)
 ABLATION_RADII = {"ss_norm_est": (1,), "ms_norm_est": (0, 1, 2), "ms_sw_n_est": (0, 2)}
@@ -1791,26 +1817,117 @@ def phase14(tmp, data, dev, grids, queries, radii, bseed, caps, run_gmm, kernels
 DP_RANKS = 2  # phase 16b: ranks sharing cuda:0 over gloo
 DP_STEPS = 2  # the two-rank step: step 1 held to the one-process step, step 2 timed
 DP_TIMEOUT = 900  # seconds a two-rank launch may take before its ranks are killed
+# phase 17: the same two ranks as a 1 x 2 (data, expert) mesh; each holds the
+# manager, 3 of the 6 one-scale experts (group 0) and the three-scale singleton
+EP_RANKS = 2
+EP_RANK_PARAMS = 117_552_877
+EP_TRAIN_SHAPES = 9  # 17b's training list: 9 of 13c's 18 shapes, 2 steps of 256
 
 
-def _timed_mesh(mesh, seconds: list):
-    """`mesh` whose gradient all-reduce (`mean_gradients_`) records its
-    wall seconds, the card synchronized around it."""
+def _timed_mesh(mesh, seconds: list, gather_seconds: list | None = None):
+    """`mesh` whose gradient all-reduce (`mean_gradients_`) and expert
+    gather (`gather_experts`) record their wall seconds, the card
+    synchronized around each."""
+    import dataclasses
+
     import torch
 
-    class TimedMesh(type(mesh)):
-        def mean_gradients_(self, params, scalars):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = super().mean_gradients_(params, scalars)
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t0)
-            return out
+    def timed(fn, out_seconds, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        out_seconds.append(time.perf_counter() - t0)
+        return out
 
-    return TimedMesh(mesh.group, mesh.rank, mesh.size)
+    class TimedMesh(type(mesh)):
+        def mean_gradients_(self, *args):
+            return timed(super().mean_gradients_, seconds, *args)
+
+        def gather_experts(self, x):
+            return timed(super().gather_experts, gather_seconds, x)
+
+    return TimedMesh(*(getattr(mesh, f.name) for f in dataclasses.fields(mesh)))
 
 
 def dp_step_rank(cfg, batch: dict, steps: int) -> dict | None:
+    """Phases 16b and 17a on each rank of one two-rank launch: the
+    data-parallel steps (`dp_rank_steps`), then the same ranks as a 1 x 2
+    expert-parallel mesh (`ep_rank_steps`).  Rank 0 returns both."""
+    import gc
+
+    import torch
+
+    dp = dp_rank_steps(cfg, batch, steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep = ep_rank_steps(cfg, batch, steps)
+    return None if dp is None else dict(dp, ep=ep)
+
+
+def ep_rank_steps(cfg, batch: dict, steps: int) -> dict | None:
+    """Phase 17a, on each rank: a 1 x 2 (data, expert) mesh, the full-width
+    float32 model from the seed keeping this rank's experts
+    (`train/mesh.py::shard_model`), every row of `batch` and `steps`
+    expert-parallel train steps, each timed with the card synchronized, the
+    expert gather and the gradient all-reduce apart.  Rank 0 returns step
+    1's loss and its gradients and BatchNorm state gathered into the
+    one-process layout, every rank's BatchNorm state, parameter count,
+    MuPS launches and backward calls in step 1, step, gather and all-reduce
+    times and peak memory."""
+    import torch
+
+    from nestinet_tpu_torch.models import build_model
+    from nestinet_tpu_torch.ops import mups as mups_ops
+    from nestinet_tpu_torch.ops.gmm import get_3d_grid_gmm
+    from nestinet_tpu_torch.ops.kernels import mups_cuda
+    from nestinet_tpu_torch.train.mesh import make_mesh, shard_model
+    from nestinet_tpu_torch.train.train_step import make_optimizer, make_train_step
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(1, EP_RANKS)
+    reduce_s, gather_s = [], []
+    timed = _timed_mesh(mesh, reduce_s, gather_s)
+    gmm = get_3d_grid_gmm([cfg.num_gaussians] * 3, variance=cfg.gmm_variance)
+    model = build_model(cfg, gmm, torch.Generator().manual_seed(SEED))
+    shard_model(model, timed)
+    model.to(dev)
+    step_fn = make_train_step(model, cfg, make_optimizer(model, cfg), mesh=timed)
+    local = {k: v.to(dev) for k, v in batch.items()}  # one data rank: every row
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, out = [], {}
+    for i in range(steps):
+        mups_cuda.KERNEL.reset_launches()
+        mups_ops.BACKWARD_CALLS["plain"] = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = step_fn(local, i)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+        if i == 0:
+            out = {"loss": loss.item(), "launches": mups_cuda.KERNEL.launches["tdmfv_n_est"],
+                   "backward_calls": mups_ops.BACKWARD_CALLS["plain"],
+                   "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                             if mesh.is_main or model.is_shard_key(n)},
+                   "buffers": {n: b.to("cpu", copy=True) for n, b in model.named_buffers()}}
+    out.update(seconds=time.perf_counter() - t0, step_ms=step_ms,
+               gather_ms=[1e3 * s for s in gather_s],
+               allreduce_ms=[1e3 * s for s in reduce_s], coords=(mesh.rank, mesh.expert_rank),
+               params=sum(p.numel() for p in model.parameters()),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    ranks = mesh.gather_experts_to_main(out)
+    if not mesh.is_main:
+        return None
+    grads, buffers = {}, {}
+    for r in ranks:
+        grads.update(r.pop("grads"))
+        buffers.update(r["buffers"])
+    return {"loss": out["loss"], "grads": grads, "buffers": buffers,
+            "rank_buffers": [r.pop("buffers") for r in ranks], "ranks": ranks}
+
+
+def dp_rank_steps(cfg, batch: dict, steps: int) -> dict | None:
     """Phase 16b, on each rank: the full-width float32 model from the seed,
     global BatchNorm moments, this rank's rows of `batch` (CPU tensors), and
     `steps` data-parallel train steps, each timed with the card
@@ -2006,7 +2123,7 @@ def phase16b_step(dev, cfg, batch, plain, card):
     return {"loss_rel_err": loss_err, "grad_worst": errs["worst"], "grad_all": errs["all"],
             "spread_worst": spread["worst"], "spread_all": spread["all"],
             "bn_fed_bias_grad_err": errs["bias"], "step_ms": step_ms, "allreduce_ms": reduce_ms,
-            "ranks": ranks, "launch_seconds": secs}
+            "ranks": ranks, "launch_seconds": secs, "ep": got["ep"]}
 
 
 def phase16b_cli(data, run, dev_sparse, int8_fold, kernels, card):
@@ -2034,13 +2151,14 @@ def phase16b_cli(data, run, dev_sparse, int8_fold, kernels, card):
             os.path.join(train_run, "1")):
         fail(f"cli.train --data_parallel {DP_RANKS}: the run holds {kinds}")
     out = {"cli_train_seconds": train_s}
-    for label, dtype, fold, ref in (("f32", "float32", "0", dev_sparse),
-                                    ("int8+fold", "int8", "1", int8_fold)):
+    for label, dtype, fold, ref, testset in (
+            ("f32", "float32", "0", dev_sparse, "testset_two.txt"),
+            ("int8+fold", "int8", "1", int8_fold, "testset_one.txt")):
         for k in kernels:
             k.reset_launches()
         t0 = time.perf_counter()
         stats = cli_test.main([
-            "--results_path", run, "--dataset_path", data, "--testset", "testset.txt",
+            "--results_path", run, "--dataset_path", data, "--testset", testset,
             "--dataset_name", f"dp{DP_RANKS}_{dtype}", "--extraction", "device",
             "--batch_size", str(DEVICE_BATCH), "--compute_dtype", dtype, "--fold_bn", fold,
             "--data_parallel", str(DP_RANKS), "--backend", "gloo"], timeout=DP_TIMEOUT)
@@ -2086,24 +2204,151 @@ def dp_launches(dp: dict, kernel: str) -> dict:
     return out
 
 
+def phase17a(ep: dict, plain: dict, card) -> dict:
+    """Phase 17a: the expert-parallel step that phase 16b's two ranks took
+    as a 1 x 2 mesh (`ep_rank_steps`) against the one-process step
+    (`plain_steps`) at phase 13a's bars: the loss at rtol 1e-5, the
+    gradients gathered into the one-process layout within 4x the spread of
+    points moved by 1e-7 (each tensor and all of them), the BN-fed biases
+    within 1e-4 of their kernel's gradient norm, the BatchNorm state at atol
+    1e-5 and equal on both ranks where both hold it; each rank holds
+    EP_RANK_PARAMS parameters and launches MuPS once a step, with no plain
+    backward call."""
+    import torch
+
+    ref, noisy = plain["grads"], plain["noisy"]
+    spread = gradient_errors(plain["spread_grads"], ref, noisy)
+    errs = gradient_errors({n: g.double() for n, g in ep["grads"].items()}, ref, noisy)
+    tensor_bar = max(TRAIN_GRAD_SPREADS * spread["worst"][1], 1e-4)
+    all_bar = max(TRAIN_GRAD_SPREADS * spread["all"], 1e-4)
+    loss_err = abs(ep["loss"] - plain["loss"]) / abs(plain["loss"])
+    state_buffers = [n for n in plain["state"] if n not in ref]  # the BatchNorm state
+    if any(n not in ep["buffers"] for n in state_buffers):
+        fail("the expert ranks' BatchNorm state misses some of the one-process model's")
+    bn_err = max((ep["buffers"][n] - plain["state"][n]).abs().max().item()
+                 for n in state_buffers)
+    first, second = ep["rank_buffers"]
+    bn_equal = all(torch.equal(first[n], second[n]) for n in first if n in second)
+    ranks = ep["ranks"]
+
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    step_ms = [median(r["step_ms"][1:]) for r in ranks]
+    gather_ms = [median(r["gather_ms"]) for r in ranks]
+    reduce_ms = [median(r["allreduce_ms"][1:]) for r in ranks]
+    peaks = [round(r["peak_memory_gb"], 2) for r in ranks]
+    print(f"phase 17a: {EP_RANKS} expert ranks on one card over gloo [full width, f32, "
+          f"B={TRAIN_BATCHES[0]} on each rank, ranks at (data, expert) "
+          f"{[r['coords'] for r in ranks]}]: parameters a rank {[r['params'] for r in ranks]} "
+          f"(want {EP_RANK_PARAMS}); loss {ep['loss']:.6f} vs one process "
+          f"{plain['loss']:.6f} (rel err {loss_err:.2e}); gradients in the one-process layout, "
+          f"relative L2: worst tensor {errs['worst'][1]:.2e} ({errs['worst'][0]}), all "
+          f"{errs['all']:.2e}; bars {tensor_bar:.2e} and {all_bar:.2e}; BN-fed biases "
+          f"{errs['bias']:.2e}; BN state max abs err {bn_err:.2e}, equal on both ranks where "
+          f"both hold it {bn_equal}; MuPS launches in step 1 per rank "
+          f"{[r['launches'] for r in ranks]}, backward calls "
+          f"{[r['backward_calls'] for r in ranks]}", flush=True)
+    print(f"time: the expert-parallel step {step_ms} ms per rank (the steps after the "
+          f"first), the expert gather {gather_ms} ms a forward, the gradient all-reduce "
+          f"{reduce_ms} ms; peak {peaks} GB a rank (phase 16b: 128 rows a rank) [{card}]",
+          flush=True)
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        fail(f"the expert-parallel step's loss differs from one process's: {loss_err}")
+    if not (errs["worst"][1] <= tensor_bar and errs["all"] <= all_bar
+            and errs["bias"] <= TRAIN_BIAS_RTOL):
+        fail(f"the expert-parallel step's gradients differ from one process's: "
+             f"{errs['worst']}, all {errs['all']}, biases {errs['bias']}")
+    if not (bn_err <= TRAIN_BN_ATOL and bn_equal):
+        fail(f"the expert-parallel BatchNorm state: max abs err {bn_err}, equal {bn_equal}")
+    if any(r["params"] != EP_RANK_PARAMS for r in ranks):
+        fail(f"parameters a rank {[r['params'] for r in ranks]}, want {EP_RANK_PARAMS}")
+    if any(r["launches"] != 1 or r["backward_calls"] != 0 for r in ranks):
+        fail(f"the expert-parallel step: MuPS launches or backward calls per rank {ranks}")
+    return {"loss_rel_err": loss_err, "grad_worst": errs["worst"], "grad_all": errs["all"],
+            "bn_fed_bias_grad_err": errs["bias"], "bn_max_abs_err": bn_err,
+            "step_ms": step_ms, "gather_ms": gather_ms, "allreduce_ms": reduce_ms,
+            "peak_memory_gb": peaks, "ranks": ranks}
+
+
+def phase17b(tmp, data, one_process_run, kernels, card) -> dict:
+    """Phase 17b: `cli.train --expert_parallel 2 --backend gloo` for one
+    epoch on 9 of 13c's 18 training shapes (2 steps of 256) and 13c's
+    validation set; its checkpoint holds the one-process layout (the keys
+    and shapes of phase 13c's one-process run, an optimizer state for every
+    parameter); `cli.test` serves it once (device-sparse f32, one shape)."""
+    import torch
+
+    from nestinet_tpu_torch.cli import test as cli_test
+    from nestinet_tpu_torch.core import checkpoint
+
+    with open(os.path.join(data, "trainingset_whitenoise.txt")) as f:
+        shapes = f.read().split()
+    with open(os.path.join(data, "trainingset_ep.txt"), "w") as f:
+        f.write("\n".join(shapes[:EP_TRAIN_SHAPES]) + "\n")
+    run = os.path.join(tmp, "train_run_ep2")
+    train_s = train_cli(data, run, "--max_epoch", "1", "--expert_parallel", str(EP_RANKS),
+                        "--backend", "gloo", "--trainset", "trainingset_ep.txt")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        kinds = [json.loads(line)["kind"] for line in f]
+    got = checkpoint.load(run, torch.device("cpu"))
+    want = checkpoint.load(one_process_run, torch.device("cpu"))
+    same_layout = (
+        {k: v.shape for k, v in got["state_dict"].items()}
+        == {k: v.shape for k, v in want["state_dict"].items()}
+        and {i: {k: v.shape for k, v in st.items()} for i, st in got["optimizer"]["state"].items()}
+        == {i: {k: v.shape for k, v in st.items()} for i, st in want["optimizer"]["state"].items()}
+        and got["optimizer"]["param_groups"][0]["params"]
+        == want["optimizer"]["param_groups"][0]["params"])
+    print(f"phase 17b: cli.train --expert_parallel {EP_RANKS}, one epoch: metrics {kinds}, "
+          f"checkpoint epoch {got['epoch']} step {got['step']}, {len(got['state_dict'])} "
+          f"entries, the one-process layout {same_layout}, {train_s:.1f} s", flush=True)
+    if kinds != ["train", "eval"] or (got["epoch"], got["step"]) != (0, 2) or not same_layout:
+        fail(f"cli.train --expert_parallel {EP_RANKS}: the run holds {kinds}, epoch "
+             f"{got['epoch']} step {got['step']}, one-process layout {same_layout}")
+    for k in kernels:
+        k.reset_launches()
+    t0 = time.perf_counter()
+    stats = cli_test.main([
+        "--results_path", run, "--dataset_path", data, "--testset", "testset_one.txt",
+        "--dataset_name", "ep2", "--extraction", "device", "--batch_size", str(DEVICE_BATCH),
+        "--compute_dtype", "float32"])
+    secs = time.perf_counter() - t0
+    launches = {n: k.launches[n] for k in kernels for n in k.launches}
+    summary = check_outputs(data, stats["output_dir"], "testset_one", N_EXPERTS)
+    print(f"phase 17b: cli.test of the expert-parallel run, device-sparse f32: "
+          f"{stats['n_patches']} patches in {stats['n_batches']} batches, "
+          f"{stats['patches_per_sec']:.1f} patches/s, RMS {summary['rms']:.4f} deg, launches "
+          f"{launches}, {secs:.1f} s [{card}]", flush=True)
+    if launches["tdmfv_n_est"] != stats["n_batches"]:
+        fail(f"cli.test of the expert-parallel run: launches {launches}")
+    return {"cli_train_seconds": train_s, "cli_test_seconds": secs,
+            "cli_test_launches": launches, "cli_test_patches_per_sec": stats["patches_per_sec"],
+            "cli_test_rms": summary["rms"]}
+
+
 def phase16(tmp, data, dev, cfg, gmm, run, dev_sparse, int8_fold, kernels, card):
     """Phase 16: data parallelism (`train/distributed.py`, `train/mesh.py`)
     on the one card: the one-process references, (b) the two-rank step
-    (launched before this process joins any group), (a) an NCCL world of
-    one, (b) cli.train and cli.test on two ranks."""
+    (launched before this process joins any group; the same launch takes
+    phase 17a's expert-parallel step), (a) an NCCL world of one, (b)
+    cli.train and cli.test on two ranks.  Returns phase 16's record and
+    phase 17a's."""
     import torch
 
     t16 = time.perf_counter()
     batch = training_batch(dev, TRAIN_BATCHES[0], SEED + 2, cfg.patch_radius)
     plain = plain_steps(dev, cfg, gmm, batch)
     record = {"step": phase16b_step(dev, cfg, batch, plain, card)}
+    ep_step = phase17a(record["step"].pop("ep"), plain, card)
     record["world_of_one"] = phase16a(dev, cfg, gmm, batch, plain, data, run,
                                       dev_sparse["output_dir"])
     del plain, batch
     torch.cuda.empty_cache()
     record |= phase16b_cli(data, run, dev_sparse, int8_fold, kernels, card)
-    print(f"phase 16: the phase took {time.perf_counter() - t16:.1f} s", flush=True)
-    return record
+    print(f"phase 16: the phase took {time.perf_counter() - t16:.1f} s (with phase 17a's "
+          f"steps in its two-rank launch)", flush=True)
+    return record, ep_step
 
 
 def main(argv=None) -> int:
@@ -2401,7 +2646,12 @@ def main(argv=None) -> int:
                        for d in ("float32", "bfloat16")}
         train_run = os.path.join(tmp, "train_run")
         train_s = train_cli(data, train_run, "--max_epoch", "2", "--profile_epoch", "1")
-        resume_s = train_cli(data, train_run, "--max_epoch", "3", "--resume", "1")
+        with open(os.path.join(data, "trainingset_whitenoise.txt")) as f:
+            train_shapes = f.read().split()
+        with open(os.path.join(data, "trainingset_resume.txt"), "w") as f:
+            f.write("\n".join(train_shapes[:RESUME_TRAIN_SHAPES]) + "\n")
+        resume_s = train_cli(data, train_run, "--max_epoch", "3", "--resume", "1",
+                             "--trainset", "trainingset_resume.txt")
         trained = check_trained_run(data, train_run)
         trained.update(check_tb_and_trace(train_run))
         print(f"phase 13: cli.train {train_s:.1f} s (2 epochs), resumed {resume_s:.1f} s (1 "
@@ -2416,8 +2666,15 @@ def main(argv=None) -> int:
         tools = phase15b(tmp, data, rd.path, shapes, dev, kernels)
 
         # ---- 16. data parallelism: an NCCL world of one, two gloo ranks on the card ----
-        dp = phase16(tmp, data, dev, train_cfg, run_gmm, rd.path, dev_sparse,
-                     dtype_runs["int8+fold"], kernels, card)
+        dp, ep_step = phase16(tmp, data, dev, train_cfg, run_gmm, rd.path, dev_sparse,
+                              dtype_runs["int8+fold"], kernels, card)
+
+        # ---- 17. expert parallelism: the 1 x 2 step (17a, run above), the CLI ----
+        t17 = time.perf_counter()
+        ep = {"step": ep_step} | phase17b(tmp, data, train_run, kernels, card)
+        print(f"phase 17: 17b took {time.perf_counter() - t17:.1f} s; 17a's steps took "
+              f"{[round(r['seconds'], 1) for r in ep_step['ranks']]} s a rank inside phase 16b's "
+              f"launch", flush=True)
         if "jax" in sys.modules:
             fail("jax was imported")
 
@@ -2438,7 +2695,7 @@ def main(argv=None) -> int:
         "routed_vs_dense_normals_max_abs_err": route_err,
         "batch_normals_max_abs_err": nerr,
         "ablations": ablations, "jax_run_dir_on_card": jax_fixture,
-        "scan": scan, "cli_tools": tools, "data_parallel": dp,
+        "scan": scan, "cli_tools": tools, "data_parallel": dp, "expert_parallel": ep,
     })
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)
@@ -2462,6 +2719,9 @@ def main(argv=None) -> int:
             "launches_test_all": tools["launches"],
             "launches_traced_epoch": trained["trace_mups_kernel_events"],
             "launches_data_parallel": dp_launches(dp, "tdmfv_n_est"),
+            "launches_expert_parallel": {
+                "train_step_per_rank": [r["launches"] for r in ep["step"]["ranks"]],
+                "cli_test": ep["cli_test_launches"]["tdmfv_n_est"]},
             "max_abs_err": k1_err,
             "ms": k1_ms[R],
             "plain_ms": plain_ms[R],

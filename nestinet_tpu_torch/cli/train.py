@@ -20,7 +20,10 @@ written as TensorBoard events into `<run>/tb/`.
 (`max(N, 0) or 1`); the batch size is the global batch and must divide by
 N.  `--backend gloo` puts CUDA ranks on gloo, which lets several ranks
 share one GPU (a smoke test's use; NCCL, the default on CUDA, needs a GPU
-a rank).  `--expert_parallel` > 1 raises NotImplementedError.
+a rank).  `--expert_parallel M` adds an expert axis of M ranks, as in JAX:
+N x M ranks in all, the ranks of one expert group on the same rows, each
+mixture-of-experts group whose size divides by M split over it
+(`train/mesh.py`); the run dir holds the one-process checkpoint.
 `--mups_impl` is kept for the run config and ignored: the MuPS CUDA
 kernel runs on the card.
 
@@ -43,7 +46,6 @@ from ..core import checkpoint as ckpt_lib
 from ..core.config import Config
 from ..core.rundir import RunDir
 from ..train import distributed
-from ..train.mesh import check_expert_parallel
 from ..train.trainer import Trainer
 from .test import MODEL_CHOICES
 
@@ -85,7 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_parallel", type=int, default=0,
                    help="ranks (one a GPU) on the data axis; 0 = one")
     p.add_argument("--expert_parallel", type=int, default=1,
-                   help="> 1 is not ported")
+                   help="ranks on the expert axis; the run takes data_parallel x this many")
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--loader_workers", type=int, default=8)
@@ -153,14 +155,14 @@ def main(argv=None, timeout: float | None = None):
     cfg = config_from_args(args)
     if args.model == "ms_sw_n_est" and "noise" not in cfg.outputs:
         cfg.outputs = tuple(cfg.outputs) + ("noise",)  # JAX `cli/train.py:131-132`
-    check_expert_parallel(cfg.expert_parallel)
     distributed.launch(train, cfg.data_parallel,
                        (cfg, bool(args.resume), args.loader_workers, args.device),
-                       device=args.device, backend=args.backend, timeout=timeout)
+                       expert_parallel=cfg.expert_parallel, device=args.device,
+                       backend=args.backend, timeout=timeout)
 
 
 def train(cfg: Config, resume: bool, loader_workers: int, device: str) -> None:
-    """Train `cfg` in this process (one rank of a data-parallel run)."""
+    """Train `cfg` in this process (one rank of a parallel run)."""
     # --resume must re-open an existing run dir: RunDir.create numbers a
     # fresh sibling on collision (log_dir/1, /2, ...) and would start a new
     # run next to the checkpoint it was asked to resume.  Re-open iff the

@@ -179,14 +179,14 @@ def to_haiku(state_dict: dict, cfg) -> tuple[dict, dict]:
     return params, state
 
 
-def optimizer_state_from_optax(opt_state, model, cfg) -> dict:
+def optimizer_state_from_optax(opt_state, model, cfg, names: list | None = None) -> dict:
     """optax state of `make_optimizer` (JAX `train_step.py:28-34`), as
     optax objects or as a decoded checkpoint's dicts -> the `state` of the
     torch optimizer's state dict, keyed by the index of each parameter in
-    `model.parameters()`."""
+    `names` (default: `model.named_parameters()`)."""
     inner = opt_state["0"] if isinstance(opt_state, dict) else opt_state[0]
     fields = inner if isinstance(inner, dict) else inner._asdict()
-    names = [n for n, _ in model.named_parameters()]
+    names = names or [n for n, _ in model.named_parameters()]
 
     def by_name(tree):  # a tree shaped like the haiku params, without state
         return from_haiku(tree, {top: {} for top in tree}, cfg)
@@ -218,3 +218,19 @@ def optimizer_state_to_optax(optimizer, model, cfg) -> dict:
     if "momentum_buffer" in first:
         return {"trace": tree("momentum_buffer")}
     raise ValueError(f"unknown torch optimizer state: {sorted(first)}")
+
+
+def optimizer_state_by_name(optimizer: dict, names: list) -> dict:
+    """{parameter name: its state} of a torch optimizer state dict whose
+    parameters are `names`, in order."""
+    return {names[i]: state for i, state in optimizer["state"].items()}
+
+
+def optimizer_state_for(optimizer: dict, names: list, by_name: dict) -> dict:
+    """The state dict of an optimizer of one parameter group over the
+    parameters `names`, in order: each one's state from `by_name`, the
+    group's settings from `optimizer`'s (a one-process checkpoint's layout
+    for the whole model's names, an expert rank's for its own)."""
+    return {"state": {i: by_name[n] for i, n in enumerate(names) if n in by_name},
+            "param_groups": [dict(optimizer["param_groups"][0],
+                                  params=list(range(len(names))))]}

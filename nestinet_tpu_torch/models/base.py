@@ -51,6 +51,15 @@ class ModelBase(nn.Module):
         self.register_buffer("gmm_mu", torch.from_numpy(mu), persistent=False)
         self.register_buffer("gmm_sigma", torch.from_numpy(sigma), persistent=False)
 
+    def sharded_parameters(self) -> list:
+        """The parameters of this rank's expert shard: none but in a mixture
+        of experts sharded over an expert axis (`models/experts.py`)."""
+        return []
+
+    def is_shard_key(self, key: str) -> bool:
+        """True when state dict `key` belongs to this rank's expert shard."""
+        return False
+
     def mups_grid(self, points: torch.Tensor, n_eff: torch.Tensor) -> torch.Tensor:
         """[B, res, res, res, 20 * n_scales] statistics grid, computed in
         float32 and cast once to the compute dtype (JAX `experts.py:150-152`)."""

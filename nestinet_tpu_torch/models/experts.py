@@ -26,7 +26,18 @@ Counterpart of `nestinet_tpu/models/experts.py`:
 The reference stacks the experts of one scale count and vmaps them; here
 they are a `ModuleList` in reference expert order, which computes the same
 function.  `expert_groups` keeps the reference's grouping because the
-haiku checkpoint is laid out by it (`convert.py`).
+haiku checkpoint is laid out by it (`convert.py`) and expert parallelism
+shards by it.
+
+Expert parallelism (`shard_experts`, called by `train/mesh.py::
+shard_model`): a model built for an expert rank is built whole from the
+seed, so its weights are the full model's bit for bit, and then keeps only
+the experts that rank holds; the others give way to an empty placeholder.
+Its forward runs the manager and its own experts on its rows and gathers
+the sharded experts' [E, B, 3] normals over the expert group into
+reference expert order; the state dict and the parameters hold its own
+experts only, and `full_state_keys` / `full_parameter_names` keep the
+whole model's order for a checkpoint in the one-process layout.
 """
 
 from __future__ import annotations
@@ -55,6 +66,13 @@ class ExpertGroup:
     @property
     def first_width(self) -> int:
         return 128 // self.n_scales
+
+
+class HeldElsewhere(torch.nn.Module):
+    """The place of an expert that another rank of the expert group holds."""
+
+    def forward(self, *args, **kwargs):
+        raise RuntimeError("this expert is held by another rank of the expert group")
 
 
 def expert_groups(cfg) -> list[ExpertGroup]:
@@ -109,6 +127,35 @@ class ExpertsNormEst(ModelBase):
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed)
         init_params(self, generator)
+        self.full_state_keys = list(self.state_dict())
+        self.full_parameter_names = [n for n, _ in self.named_parameters()]
+        self.shard_blocks = None  # [expert rank: its sharded expert ids]
+        self.expert_rank = 0
+        self.expert_gather = None
+
+    def shard_experts(self, blocks: list, rank: int, gather) -> None:
+        """Keep only expert rank `rank`'s experts: `blocks[e]` lists the ids
+        expert rank e holds (`train/mesh.py::held_experts`), the ids in
+        every block are replicated and the rest sharded.  `gather(x)` takes
+        this rank's sharded experts' normals [S, B, 3] to every expert
+        rank's, [len(blocks), S, B, 3] (`Mesh.gather_experts`)."""
+        common = set.intersection(*map(set, blocks))
+        self.shard_blocks = [[i for i in b if i not in common] for b in blocks]
+        self.expert_rank = rank
+        self.expert_gather = gather
+        for i in range(self.n_experts):
+            if i not in blocks[rank]:
+                self.experts[i] = HeldElsewhere()
+
+    def sharded_parameters(self) -> list:
+        if self.shard_blocks is None:
+            return []
+        return [p for i in self.shard_blocks[self.expert_rank]
+                for p in self.experts[i].parameters()]
+
+    def is_shard_key(self, key: str) -> bool:
+        return self.shard_blocks is not None and any(
+            key.startswith(f"experts.{i}.") for i in self.shard_blocks[self.expert_rank])
 
     def manager_probs(self, grid: torch.Tensor, training: bool = False,
                       bn_momentum=None) -> torch.Tensor:
@@ -131,9 +178,18 @@ class ExpertsNormEst(ModelBase):
         """Dense MoE on a [B, r, r, r, C] grid -> {"n_pred": [E, B, 3],
         "experts_prob": [E, B]}: every expert on every patch."""
         probs = self.manager_probs(grid, training, bn_momentum)
-        n_pred = torch.stack([self.expert_on_grid(i, grid, training, bn_momentum)
-                              for i in range(self.n_experts)])
-        return {"n_pred": n_pred, "experts_prob": probs}
+        if self.shard_blocks is None:
+            n_pred = torch.stack([self.expert_on_grid(i, grid, training, bn_momentum)
+                                  for i in range(self.n_experts)])
+            return {"n_pred": n_pred, "experts_prob": probs}
+        out = {i: self.expert_on_grid(i, grid, training, bn_momentum)
+               for i in range(self.n_experts) if not isinstance(self.experts[i], HeldElsewhere)}
+        parts = self.expert_gather(torch.stack([out[i] for i in
+                                                self.shard_blocks[self.expert_rank]]))
+        for block, part in zip(self.shard_blocks, parts):
+            out.update(zip(block, part))
+        return {"n_pred": torch.stack([out[i] for i in range(self.n_experts)]),
+                "experts_prob": probs}
 
     def forward(self, points: torch.Tensor, n_eff: torch.Tensor, training: bool = False,
                 bn_momentum=None, dropout_masks=None) -> dict:

@@ -87,8 +87,10 @@ class BatchNormEMA(nn.Module):
 
     Data-parallel training (`set_moment_sum`): the moments are the global
     batch's, as JAX's `jnp.mean` / `jnp.var` of a batch sharded over the
-    data axis are.  `moment_sum` sums over the ranks and autograd
-    differentiates it (`train/mesh.py::DataMesh.sum`): the per-channel sums
+    data axis are.  `moment_sum` sums over the data group (the ranks of one
+    expert group hold the same rows, so it is the manager's and every
+    expert's alike) and autograd differentiates it
+    (`train/mesh.py::Mesh.sum`): the per-channel sums
     and the row count give the mean, then the sums of squared deviations
     from it the variance, so every rank normalizes with the same moments,
     its backward sees them, and the EMA buffers stay equal on every rank."""
@@ -417,10 +419,13 @@ def dropout(x: torch.Tensor, rate: float, training: bool, source: Dropout | None
     return (source if source is not None else Dropout())(x, rate)
 
 
-def l2_weight_penalty(module: nn.Module) -> torch.Tensor:
+def l2_weight_penalty(module: nn.Module, only=None) -> torch.Tensor:
     """Sum of 0.5 * ||w||^2 over the conv and linear kernels in float32;
     biases and BatchNorm parameters are left out (JAX `ops/nn.py:502-514`,
-    the reference's 'losses' collection, `tf_util.py:36-54`)."""
+    the reference's 'losses' collection, `tf_util.py:36-54`).  `only`: the
+    kernels among these parameters alone."""
+    keep = None if only is None else {id(p) for p in only}
     terms = [0.5 * torch.sum(torch.square(p.float()))
-             for name, p in module.named_parameters() if name.rsplit(".", 1)[-1] == "w"]
+             for name, p in module.named_parameters() if name.rsplit(".", 1)[-1] == "w"
+             and (keep is None or id(p) in keep)]
     return torch.stack(terms).sum()

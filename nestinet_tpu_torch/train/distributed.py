@@ -5,16 +5,18 @@ program per host over a global device mesh; PyTorch runs one process (a
 rank) per GPU in a `torch.distributed` process group.  NCCL serves CUDA
 tensors and gloo serves the CPU.
 
-How ranks map to hosts and GPUs.  `--data_parallel N` keeps JAX's meaning:
-N is the global number of data shards, here the world size.  JAX's
-variables keep theirs: a process of JAX is one launcher on one host.
+How ranks map to hosts and GPUs.  `--data_parallel N` and
+`--expert_parallel M` keep JAX's meaning: N data shards and M expert
+shards, here a world of N x M ranks (`train/mesh.py`: world rank r sits at
+data rank r // M and expert rank r % M).  JAX's variables keep theirs: a
+process of JAX is one launcher on one host.
 
   * `COORDINATOR_ADDRESS` (host:port of host 0), `NUM_PROCESSES` (the
     hosts, H) and `PROCESS_ID` (this host, h) are read by `initialize()`
     and by `launch()`, as by `jax.distributed.initialize`;
-  * `launch()` on host h starts N / H local ranks, local rank l drives
+  * `launch()` on host h starts N x M / H local ranks, local rank l drives
     `cuda:l` (or the CPU when the caller asks for it), and its global
-    rank is h * (N / H) + l; all ranks meet at `tcp://COORDINATOR_ADDRESS`
+    rank is h * (N x M / H) + l; all ranks meet at `tcp://COORDINATOR_ADDRESS`
     (on one host: a free localhost port);
   * a process started by some other launcher, one per GPU, calls
     `initialize()` with its own rank as PROCESS_ID and the world size as
@@ -101,17 +103,27 @@ def process_info() -> tuple[int, int]:
     return 0, 1
 
 
-def host_shard(items) -> list:
-    """This rank's slice of a global work list (shapes, files, ...):
-    round-robin by rank, so every rank gets distinct items."""
+def data_rank_info(expert_parallel: int = 1) -> tuple[int, int]:
+    """(data rank, data ranks) of this rank on a (data, expert) mesh with
+    `expert_parallel` ranks on the expert axis (`train/mesh.py::make_mesh`:
+    world rank r sits at data rank r // expert_parallel)."""
     idx, count = process_info()
+    return idx // expert_parallel, count // expert_parallel
+
+
+def host_shard(items, expert_parallel: int = 1) -> list:
+    """This rank's slice of a global work list (shapes, files, ...):
+    round-robin by data rank, so every data rank gets distinct items and
+    the ranks of one expert group the same ones."""
+    idx, count = data_rank_info(expert_parallel)
     return [it for i, it in enumerate(items) if i % count == idx]
 
 
-def host_batch_slice(global_batch: int) -> slice:
-    """The rows of a global batch that this rank holds: contiguous, in rank
-    order, as JAX's `NamedSharding(P("data"))` lays a batch out."""
-    idx, count = process_info()
+def host_batch_slice(global_batch: int, expert_parallel: int = 1) -> slice:
+    """The rows of a global batch that this rank holds: contiguous, in data
+    rank order, as JAX's `NamedSharding(P("data"))` lays a batch out; the
+    ranks of one expert group hold the same rows."""
+    idx, count = data_rank_info(expert_parallel)
     if global_batch % count:
         raise ValueError(
             f"global batch {global_batch} must divide by process count {count}"
@@ -192,10 +204,11 @@ def _rank_main(local_rank: int, fn, args, kwargs, spec: dict) -> None:
 
 
 def launch(fn, data_parallel: int, args: tuple = (), kwargs: dict | None = None, *,
-           device: str | torch.device = "cuda", backend: str | None = None,
-           timeout: float | None = None):
-    """Run `fn(*args, **kwargs)` on `data_parallel` ranks (the global count,
-    over NUM_PROCESSES hosts) and return global rank 0's result.
+           expert_parallel: int = 1, device: str | torch.device = "cuda",
+           backend: str | None = None, timeout: float | None = None):
+    """Run `fn(*args, **kwargs)` on data_parallel x expert_parallel ranks
+    (the global count, over NUM_PROCESSES hosts) and return global rank 0's
+    result.
 
     Inside a process group already, or for one rank on one host, `fn` runs
     in this process.  Otherwise this host's ranks are spawned (`torch.
@@ -206,15 +219,16 @@ def launch(fn, data_parallel: int, args: tuple = (), kwargs: dict | None = None,
     TimeoutError raised; a rank that fails kills the others and re-raises.
     """
     kwargs = kwargs or {}
+    ranks = data_parallel * expert_parallel
     if (dist.is_available() and dist.is_initialized()) or (
-            data_parallel == 1 and int(os.environ.get("NUM_PROCESSES", "1")) == 1):
+            ranks == 1 and int(os.environ.get("NUM_PROCESSES", "1")) == 1):
         return fn(*args, **kwargs)
     backend = resolve_backend(device, backend)
     hosts = int(os.environ.get("NUM_PROCESSES", "1"))
-    if data_parallel < 1 or data_parallel % hosts:
-        raise ValueError(f"data_parallel={data_parallel} must be a positive multiple of "
-                         f"the {hosts} processes (hosts)")
-    local = data_parallel // hosts
+    if data_parallel < 1 or expert_parallel < 1 or ranks % hosts:
+        raise ValueError(f"data_parallel={data_parallel} x expert_parallel={expert_parallel} "
+                         f"must be a positive multiple of the {hosts} processes (hosts)")
+    local = ranks // hosts
     if backend == "nccl":
         visible = torch.cuda.device_count()
         if local > visible:

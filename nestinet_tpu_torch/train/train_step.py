@@ -79,10 +79,17 @@ def make_train_step(model, cfg, optimizer: torch.optim.Optimizer, metrics: dict 
     one collective, bit for bit that step on a world of one, and the loss
     and the metrics ride in the same buffer; DDP's bucketed all-reduce
     would overlap the backward on several GPUs, which this card does not
-    have to measure."""
+    have to measure.
+
+    On an expert axis (`train/mesh.py`) the ranks of one expert group take
+    the same rows and the model holds this rank's expert shard only
+    (`models/experts.py`): the shard's gradients are averaged over the data
+    group, the replicated ones over the world, and the logged loss counts
+    the weight penalty of every shard once."""
     bn_sched = bn_momentum_schedule(cfg)
     lr_sched = learning_rate_schedule(cfg)
     parallel = mesh is not None and mesh.parallel
+    sharded = model.sharded_parameters()
 
     def train_step(batch: dict, step: int, dropout_masks: Dropout | None = None) -> torch.Tensor:
         batch = _device_batch(model, batch)
@@ -97,13 +104,18 @@ def make_train_step(model, cfg, optimizer: torch.optim.Optimizer, metrics: dict 
         outputs = model(batch["points"], batch["n_eff"], training=True,
                         bn_momentum=bn_sched(step), dropout_masks=dropout_masks)
         loss, aux = model.loss(outputs, batch)
+        logged = None
         if cfg.weight_decay > 0.0:
             loss = loss + cfg.weight_decay * l2_weight_penalty(model)
+            if sharded:  # this rank's penalty counts its own shard only
+                shard = l2_weight_penalty(model, sharded).detach()
+                logged = loss.detach() + cfg.weight_decay * (mesh.expert_sum_(shard.clone())
+                                                             - shard)
         loss.backward()
-        scalars = {"loss": loss.detach(),
+        scalars = {"loss": loss.detach() if logged is None else logged,
                    **{k: v.detach() for k, v in aux.items() if k != "cos_ang"}}
         if parallel:
-            scalars = mesh.mean_gradients_(model.parameters(), scalars)
+            scalars = mesh.mean_gradients_(model.parameters(), scalars, sharded)
         optimizer.step()
         if metrics is not None:
             for name, value in scalars.items():

@@ -20,9 +20,18 @@ global batch's step (`train/train_step.py`, global BatchNorm moments).
 Rank 0 creates the run dir and broadcasts its path, and alone writes the
 config, the checkpoints, `metrics.jsonl`, the TensorBoard events and the
 trace; every rank reads a checkpoint on resume.  Validation gathers every
-rank's cosines in the global batches' order before the RMS, so every rank
-takes the same best-checkpoint decision.  `expert_parallel > 1` raises
-NotImplementedError (`train/mesh.py::make_mesh`).
+data rank's cosines in the global batches' order before the RMS, and every
+rank takes rank 0's best-checkpoint decision.
+
+Expert parallelism (`cfg.expert_parallel` ranks on the expert axis, JAX
+`trainer.py:55-57, 148-154`): the mesh is (data, expert) (`train/mesh.py`),
+the ranks of one expert group load the same rows, and a mixture of experts
+keeps only this rank's experts of each group that divides over the axis
+(`train/mesh.py::shard_model`); its optimizer holds their moments only.  A
+checkpoint keeps one layout on disk: rank 0 gathers the expert shards'
+weights, BatchNorm state and moments from its expert group and writes the
+one-process checkpoint, and each rank keeps its part of one on resume, so
+a run resumes under any layout and `cli.test` serves it unchanged.
 """
 
 from __future__ import annotations
@@ -45,14 +54,14 @@ from ..data.loader import get_data_loader
 from ..models import build_model
 from ..ops.gmm import get_3d_grid_gmm
 from ..ops.nn import set_moment_sum
-from .mesh import DataMesh, make_mesh
+from .mesh import Mesh, make_mesh, shard_model
 from .schedules import bn_momentum_schedule, learning_rate_schedule
 from .train_step import make_eval_step, make_optimizer, make_train_step
 
 
 class Trainer:
     def __init__(self, cfg: Config, run_dir: RunDir | None = None, loader_workers: int = 8,
-                 device: str | torch.device = "cuda", mesh: DataMesh | None = None):
+                 device: str | torch.device = "cuda", mesh: Mesh | None = None):
         if cfg.compute_dtype == "int8":
             raise ValueError(
                 "compute_dtype='int8' is a serving-only mode (post-training "
@@ -61,9 +70,9 @@ class Trainer:
             )
         self.mesh = mesh if mesh is not None else make_mesh(cfg.data_parallel,
                                                             cfg.expert_parallel)
-        assert cfg.batch_size % self.mesh.size == 0, (
-            "batch_size must divide over the data mesh axis"
-        )
+        if cfg.batch_size % self.mesh.size:
+            raise ValueError(f"batch_size {cfg.batch_size} must divide over the data mesh "
+                             f"axis of {self.mesh.size}")
         if getattr(cfg, "fold_bn", False):
             # BN folding is a serving-only checkpoint transform; in training
             # the EMA state must keep updating and validation must read it.
@@ -76,6 +85,8 @@ class Trainer:
 
         self.gmm = get_3d_grid_gmm([cfg.num_gaussians] * 3, variance=cfg.gmm_variance)
         self.model = build_model(cfg, self.gmm, torch.Generator().manual_seed(cfg.seed))
+        shard_model(self.model, self.mesh)
+        self.sharded = bool(self.model.sharded_parameters())
         self.model.to(self.device)
         set_moment_sum(self.model, self.mesh.sum if self.mesh.size > 1 else None)
         self.optimizer = make_optimizer(self.model, cfg)
@@ -142,20 +153,33 @@ class Trainer:
             return
         payload = ckpt_lib.load(self.rundir.path, self.device, cfg=self.cfg)
         optimizer = payload["optimizer"]
+        state_dict = payload["state_dict"]
         if optimizer is None:  # JAX's: the optax state, converted by path
             optimizer = self._optimizer_state_from_optax(payload["optax_state"])
             if self.mesh.is_main:
                 self._adopt_jax_best()
-        self.model.load_state_dict(payload["state_dict"])
+        elif self.sharded:  # this rank's part of the one-process layout
+            by_name = convert.optimizer_state_by_name(optimizer, self.model.full_parameter_names)
+            optimizer = convert.optimizer_state_for(optimizer, self._names(), by_name)
+        if self.sharded:
+            own = self.model.state_dict().keys()
+            state_dict = {k: v for k, v in state_dict.items() if k in own}
+        self.model.load_state_dict(state_dict)
         self.optimizer.load_state_dict(optimizer)
         self.step = payload["step"]
         self.start_epoch = payload["epoch"] + 1
         self.rundir.log(f"resumed from epoch {payload['epoch']} (step {self.step})")
 
-    def _optimizer_state_from_optax(self, optax_state) -> dict:
-        optimizer = self.optimizer.state_dict()
-        optimizer["state"] = convert.optimizer_state_from_optax(optax_state, self.model, self.cfg)
-        return optimizer
+    def _names(self) -> list:
+        return [n for n, _ in self.model.named_parameters()]
+
+    def _optimizer_state_from_optax(self, optax_state, names: list | None = None) -> dict:
+        """The optimizer state of the parameters `names` (default: this
+        rank's) from JAX's optax state."""
+        names = names or self._names()
+        state = convert.optimizer_state_from_optax(optax_state, self.model, self.cfg, names)
+        return convert.optimizer_state_for(self.optimizer.state_dict(), names,
+                                           dict(zip(names, state.values())))
 
     def _adopt_jax_best(self) -> None:
         """Copy JAX's `ckpt_best/` into `ckpt_torch_best/` when the port
@@ -166,7 +190,9 @@ class Trainer:
             return
         best = ckpt_lib.load_jax(path, self.cfg, best=True)
         ckpt_lib.save(path, best["state_dict"],
-                      optimizer=self._optimizer_state_from_optax(best["optax_state"]),
+                      optimizer=self._optimizer_state_from_optax(
+                          best["optax_state"], self.model.full_parameter_names
+                          if self.sharded else None),
                       step=best["step"], epoch=best["epoch"], periodic=False, best=True)
         self.rundir.log(f"JAX's best checkpoint (epoch {best['epoch']}) copied to "
                         f"{ckpt_lib.BEST_DIR}/")
@@ -233,6 +259,7 @@ class Trainer:
             rms = float(np.sqrt(np.mean(ang ** 2)))
         else:
             rms = float("nan")
+        rms = self.mesh.broadcast(rms)  # one best-checkpoint decision on every rank
         self.rundir.log(f"epoch {epoch:4d} eval mean loss: {mean_loss:.6f}  rms: {rms:.4f} deg")
         self.rundir.metrics(kind="eval", epoch=epoch, step=self.step, loss=mean_loss,
                             rms_deg=rms)
@@ -241,17 +268,41 @@ class Trainer:
     def save_checkpoint(self, epoch: int, periodic: bool = True, best: bool = False):
         """`periodic` writes `ckpt_torch/` (the resume checkpoint), `best`
         writes `ckpt_torch_best/` (a new best validation RMS; serving
-        prefers it).  Rank 0 alone writes."""
-        if not self.mesh.is_main:
+        prefers it).  Rank 0 alone writes, in the one-process layout."""
+        if not (periodic or best):
             return
-        paths = ckpt_lib.save(
-            self.rundir.path, self.model.state_dict(), optimizer=self.optimizer.state_dict(),
-            step=self.step, epoch=epoch, periodic=periodic, best=best,
-        )
+        state = self._checkpoint_state()
+        if state is None:
+            return
+        paths = ckpt_lib.save(self.rundir.path, state[0], optimizer=state[1], step=self.step,
+                              epoch=epoch, periodic=periodic, best=best)
         if paths:
             tags = " + ".join(t for t, on in (("checkpoint", periodic),
                                               ("best checkpoint", best)) if on)
             self.rundir.log(f"{tags} written at epoch {epoch}")
+
+    def _checkpoint_state(self) -> tuple[dict, dict] | None:
+        """(state dict, optimizer state) in the one-process layout on rank 0,
+        None elsewhere.  A sharded model's rank 0 gathers the other expert
+        shards' entries from its expert group."""
+        model, optimizer = self.model, self.optimizer.state_dict()
+        if not self.sharded:
+            return (model.state_dict(), optimizer) if self.mesh.is_main else None
+        if self.mesh.rank != 0:  # data rank 0's expert group alone gathers
+            return None
+        state = model.state_dict()
+        by_name = convert.optimizer_state_by_name(optimizer, self._names())
+        mine = ({k: v.cpu() for k, v in state.items() if model.is_shard_key(k)},
+                {n: {k: v.cpu() for k, v in s.items()} for n, s in by_name.items()
+                 if model.is_shard_key(n)})
+        parts = self.mesh.gather_experts_to_main(mine)
+        if not self.mesh.is_main:
+            return None
+        for part_state, part_optimizer in parts[1:]:
+            state.update(part_state)
+            by_name.update(part_optimizer)
+        return ({k: state[k] for k in model.full_state_keys},
+                convert.optimizer_state_for(optimizer, model.full_parameter_names, by_name))
 
     def _historical_best_rms(self) -> float:
         """Minimum eval RMS recorded in this run's metrics.jsonl (inf if

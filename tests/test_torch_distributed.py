@@ -57,7 +57,7 @@ def test_helpers_in_a_mocked_4_host_layout_match_jax(rank):
             distributed.host_batch_slice(63)
         with pytest.raises(ValueError):
             jax_distributed.host_batch_slice(63)
-        assert mesh.DataMesh(None, rank, 4).rows(64) == distributed.host_batch_slice(64)
+        assert mesh.Mesh(None, rank, 4).rows(64) == distributed.host_batch_slice(64)
 
 
 @pytest.mark.parametrize("ranks", [2, 4, 8])
@@ -69,7 +69,7 @@ def test_shard_batch_keeps_the_rows_jax_puts_on_each_device(ranks):
     sharded = jax.device_put(batch["points"], NamedSharding(jmesh, PartitionSpec("data")))
     by_device = {s.device: np.asarray(s.data) for s in sharded.addressable_shards}
     for rank, device in enumerate(jmesh.devices[:, 0]):
-        got = mesh.shard_batch(batch, mesh.DataMesh(None, rank, ranks))
+        got = mesh.shard_batch(batch, mesh.Mesh(None, rank, ranks))
         np.testing.assert_array_equal(got["points"], by_device[device])
         assert got["n_eff"].shape == (16 // ranks, 1)
 
@@ -128,11 +128,31 @@ def test_make_mesh():
     one = mesh.make_mesh(0)
     assert (one.group, one.rank, one.size, one.parallel) == (None, 0, 1, False)
     assert mesh.make_mesh(1) == one
-    with pytest.raises(NotImplementedError, match="expert_parallel=2"):
-        mesh.make_mesh(1, 2)
-    with pytest.raises(ValueError, match="distributed.launch"):
-        mesh.make_mesh(2)
+    for dp, ep in ((1, 2), (2, 1)):  # one process is no world of 2
+        with pytest.raises(ValueError, match="distributed.launch"):
+            mesh.make_mesh(dp, ep)
     assert (mesh.DATA_AXIS, mesh.EXPERT_AXIS) == ("data", "expert")
+    # a mocked world of 6 ranks: rank r at (r // ep, r % ep), as JAX's
+    # devices.reshape(dp, ep); every group built on every rank, in order
+    made = []
+
+    def new_group(ranks):
+        made.append(tuple(ranks))
+        return tuple(ranks)
+
+    with mock.patch.object(distributed, "process_info", return_value=(5, 6)), \
+            mock.patch.object(mesh.dist, "is_initialized", return_value=True), \
+            mock.patch.object(mesh.dist, "new_group", side_effect=new_group):
+        m = mesh.make_mesh(3, 2)
+        assert (m.rank, m.size, m.expert_rank, m.expert_size) == (2, 3, 1, 2)
+        assert m.group == (1, 3, 5) and m.expert_group == (4, 5) and not m.is_main
+        assert made == [(0, 2, 4), (1, 3, 5), (0, 1), (2, 3), (4, 5)]
+        m = mesh.make_mesh(0, 3)  # data_parallel 0: world // ep
+        assert (m.rank, m.size, m.expert_rank, m.expert_size) == (1, 2, 2, 3)
+        assert m.group == (2, 5) and m.expert_group == (3, 4, 5)
+        for dp, ep in ((2, 2), (4, 2), (0, 4)):  # not dp x ep = 6
+            with pytest.raises(ValueError, match="world of 6"):
+                mesh.make_mesh(dp, ep)
 
 
 def _loader(data, **kw):  # noqa: F811

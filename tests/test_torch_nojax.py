@@ -11,7 +11,7 @@ single-scale model's forward, and the committed JAX run dir
 (`nestinet_tpu_torch/testdata/jax_run_moe3/`) read by the flax-free reader
 and served; then the CLIs `synth`, `test_all`, `evaluate
 --expert_statistics 1` and `scan` (a 16-bit depth PNG) on that run dir,
-on the CPU.  PIL, matplotlib, tensorboard and sklearn are blocked too:
+and the host library (PLY, voxels, rotations, augmentations), on the CPU.  PIL, matplotlib, tensorboard and sklearn are blocked too:
 the GPU machine has none of them.  An AST scan of every file of the port and of `chip_smoke.py`
 fails on any import of those packages, `nestinet_tpu` or their submodules,
 including the imports inside functions that the subprocess never reaches.
@@ -60,6 +60,11 @@ SCRIPT = textwrap.dedent(
         "nestinet_tpu_torch.data.loader",
         "nestinet_tpu_torch.data.augment",
         "nestinet_tpu_torch.data.rotations",
+        "nestinet_tpu_torch.data.ply",
+        "nestinet_tpu_torch.data.pointcloud",
+        "nestinet_tpu_torch.data.modelnet",
+        "nestinet_tpu_torch.train.distributed",
+        "nestinet_tpu_torch.train.mesh",
         "nestinet_tpu_torch.data.native",
         "nestinet_tpu_torch.data.synthetic",
         "nestinet_tpu_torch.eval",
@@ -217,6 +222,15 @@ SCRIPT = textwrap.dedent(
                        "--intrinsic", os.path.join(tmp, "k.txt"), "--depth_shift", "1000",
                        "--batch_size", "64", "--project_to_image", "1", "--device", "cpu"])
         assert json.loads(out.getvalue())["n_points"] == 12 * 16
+        from nestinet_tpu_torch.data import augment, ply, pointcloud, rotations
+        pts = np.random.RandomState(0).uniform(-1, 1, (2, 32, 3)).astype(np.float32)
+        ply.write_ply(os.path.join(tmp, "p.ply"), pts[0], normals=pts[1])
+        assert np.array_equal(ply.read_ply_points(os.path.join(tmp, "p.ply")), pts[0])
+        assert pointcloud.point_cloud_to_volume(pts[0], 4).sum() > 0
+        assert np.allclose(rotations.quat2mat(rotations.euler2quat(0.3, 0.2, 0.1)),
+                           rotations.euler2mat(0.3, 0.2, 0.1))
+        rng = np.random.RandomState(1)
+        assert augment.occlude(augment.jitter(pts, rng), rng, 0.25).shape == (2, 24, 3)
     assert all(sys.modules.get(n) is None for n in BLOCKED)
     print("NOJAX_OK")
     """
