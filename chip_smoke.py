@@ -175,6 +175,22 @@ and prints no result):
      BatchNorm state and Adam's moments), and `cli.test` serves it once
      (device-sparse f32, one shape, launch counts set to 0 before it and
      read after).
+ 18. the quality bar on the committed trained run dirs
+     (`tests/test_torch_quality_fixture.py` writes them with JAX): (a) the
+     port's `cli.synth` writes the MoE run dir's protocol sets and
+     `scripts/run_quality.py` serves a copy of it in the six modes of its
+     `anchor.json` (host-dense f32; device-sparse f32, bf16, bf16+fold,
+     int8, int8+fold): each testset's RMS within 0.01 deg of JAX's
+     host-dense f32 anchor in host-dense f32 and within 0.1 deg in every
+     other mode, one MuPS launch a served batch, the int8 kernel in the
+     int8 modes only; (b) `scripts/switching_demo.py` on the switching run
+     dir (its `SW_BACKBONE` narrowed to `TINY`, as JAX wrote it) against
+     JAX's committed table: per noise level the small-branch share within
+     one patch, the mean noise within 1e-4, the RMS within 0.01 deg; (c)
+     the port's EM fits a K = 64 learned GMM to 65,536 of phase 4's served
+     points, and both MuPS kernels run on its unequal weights and
+     anisotropic sigmas against the plain version at atol 1e-5, the
+     blocked one identical to kernel 1.
 
 Before phase 16 the whole script ran in about 905 s on an H100 (phases
 1-12 about 300 s, phase 14 about 195 s, phase 15 about 250 s, of its
@@ -194,6 +210,8 @@ H100 host and 1,064 s on a slower one, so the depth of phases 13 and 16
 was cut for it: 13c's resumed epoch trains one step (4 of the 18 shapes)
 where it took four, and 16b's `cli.test --data_parallel 2` serves two
 shapes in float32 and one in int8+fold where it served six in each.
+Phase 18 adds about 80 s (81 s on an H100; 52 s before 18d, the quality
+drivers at full width) and cuts nothing.
 
 Each serving path and the kernels' entry point run with the launch counts
 set to 0 just before and read just after; a kernel of the path that was
@@ -206,9 +224,12 @@ writes every number measured to a JSON file.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1824,6 +1845,31 @@ EP_RANK_PARAMS = 117_552_877
 EP_TRAIN_SHAPES = 9  # 17b's training list: 9 of 13c's 18 shapes, 2 steps of 256
 
 
+# phase 18, the quality bar on the committed trained run dirs
+# (`tests/test_torch_quality_fixture.py` writes them with JAX and holds the
+# port to the same bars on the CPU)
+QUALITY_RUN = os.path.join("nestinet_tpu_torch", "testdata", "jax_run_moe_trained")
+SWITCH_RUN = os.path.join("nestinet_tpu_torch", "testdata", "jax_run_switching")
+SWITCH_SYNTH = ["--switching", "--n_points", "5000", "--n_pidx", "200", "--seed", "23"]
+QUALITY_BATCH = 256
+QUALITY_F32_BAR_DEG = 0.01  # host-dense float32 against JAX's anchor, per testset
+QUALITY_BAR_DEG = 0.1  # every other mode against the anchor, per testset
+# each mode against JAX's same mode in anchor.json, per testset, from the
+# readings (`tests/test_torch_quality_fixture.py::SAME_MODE_BAR_DEG`)
+QUALITY_SAME_MODE_BAR_DEG = {
+    "host-dense f32": 0.01,
+    "device-sparse f32": 0.01,
+    "device-sparse bf16": 0.01,
+    "device-sparse bf16+fold": 0.01,
+    "device-sparse int8": 0.06,
+    "device-sparse int8+fold": 0.06,
+}
+SWITCH_NOISE_ATOL = 1e-4
+SWITCH_RMS_ATOL_DEG = 0.01
+LEARNED_K = 64  # phase 18c: the learned GMM's components
+LEARNED_POINTS = 65536  # of the served rows' points, drawn from the seed
+
+
 def _timed_mesh(mesh, seconds: list, gather_seconds: list | None = None):
     """`mesh` whose gradient all-reduce (`mean_gradients_`) and expert
     gather (`gather_experts`) record their wall seconds, the card
@@ -2351,6 +2397,271 @@ def phase16(tmp, data, dev, cfg, gmm, run, dev_sparse, int8_fold, kernels, card)
     return record, ep_step
 
 
+# ---------------------------------------------------------------- phase 18
+
+def _quiet(fn, *args):
+    """fn(*args) with its standard output kept (returned beside)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = fn(*args)
+    return got, out.getvalue()
+
+
+def _launch_counts(kernels) -> dict:
+    return {n: k.launches[n] for k in kernels for n in k.launches}
+
+
+def phase18a(tmp, root, kernels, card) -> dict:
+    """Phase 18a: the port's `cli.synth` writes the committed MoE run dir's
+    protocol sets (`anchor.json`'s `synth`); `scripts/run_quality.py`
+    serves its copy on the card in the six modes of `anchor.json`, each
+    with the launch counts set to 0 before and read after: per testset the
+    host-dense float32 RMS within 0.01 deg of JAX's anchor, every other mode
+    within 0.1 deg of it and within QUALITY_SAME_MODE_BAR_DEG of JAX's same
+    mode; MuPS launched once a served batch; the int8 kernel in the int8
+    modes only."""
+    from nestinet_tpu_torch.cli import synth
+    from nestinet_tpu_torch.scripts import run_quality
+
+    with open(os.path.join(root, QUALITY_RUN, "anchor.json")) as f:
+        anchor = json.load(f)
+    data, run = os.path.join(tmp, "quality_data"), os.path.join(tmp, "quality_run")
+    _quiet(synth.main, ["--root", data, *anchor["synth"]])
+    shutil.copytree(os.path.join(root, QUALITY_RUN, "run"), run)
+    want = anchor["modes"][anchor["anchor"]]
+    modes = {}
+    for i, (mode, flags) in enumerate(anchor["mode_flags"].items()):
+        for k in kernels:
+            k.reset_launches()
+        t0 = time.perf_counter()
+        got, _ = _quiet(run_quality.main, [run, "--data", data, "--batch", str(QUALITY_BATCH),
+                                           "--results_name", f"q{i}", "--device", "cuda", *flags])
+        secs = time.perf_counter() - t0
+        launches = _launch_counts(kernels)
+        stats = got["stats"].values()
+        batches = sum(st["n_batches"] for st in stats)
+        patches = sum(st["n_patches"] for st in stats)
+        serve_s = sum(st["seconds"] for st in stats)
+        rms = {ts: v["rms"] for ts, v in got["summary"].items()}
+        gaps = {ts: rms[ts] - want[ts]["rms"] for ts in want}
+        same = {ts: rms[ts] - v["rms"] for ts, v in anchor["modes"][mode].items()}
+        bar = QUALITY_F32_BAR_DEG if mode == anchor["anchor"] else QUALITY_BAR_DEG
+        same_bar = QUALITY_SAME_MODE_BAR_DEG[mode]
+        modes[mode] = {"rms": rms, "gap_to_anchor": gaps, "gap_to_jax_same_mode": same,
+                       "jax_rms": {ts: v["rms"] for ts, v in anchor["modes"][mode].items()},
+            "pgp5": {ts: v["pgp5"] for ts, v in got["summary"].items()},
+            "pgp10": {ts: v["pgp10"] for ts, v in got["summary"].items()},
+            "patches": patches, "batches": batches, "patches_per_sec": patches / serve_s,
+            "seconds": secs, "launches": launches}
+        print(f"phase 18a: run_quality {mode}: RMS " + ", ".join(
+            f"{ts} {v:.4f}" for ts, v in rms.items()) + f" deg; max |gap to the anchor| "
+            f"{max(abs(g) for g in gaps.values()):.5f} deg (bar {bar}), to JAX's same mode "
+            f"{max(abs(g) for g in same.values()):.5f} deg (bar {same_bar}); {patches} patches in "
+            f"{batches} batches, {patches / serve_s:.1f} patches/s, launches {launches}, "
+            f"{secs:.1f} s [{card}]", flush=True)
+        if not max(abs(g) for g in gaps.values()) <= bar:
+            fail(f"phase 18a {mode}: RMS off JAX's anchor by {gaps} (bar {bar} deg)")
+        if not max(abs(g) for g in same.values()) <= same_bar:
+            fail(f"phase 18a {mode}: RMS off JAX's same mode by {same} (bar {same_bar} deg)")
+        if launches["tdmfv_n_est"] != batches:
+            fail(f"phase 18a {mode}: {launches['tdmfv_n_est']} MuPS launches for {batches} "
+                 f"batches")
+        if ("int8" in mode) != (launches["int8_conv3d"] > 0):
+            fail(f"phase 18a {mode}: int8 kernel launches {launches['int8_conv3d']}")
+    return modes
+
+
+def phase18b(tmp, root, kernels, card) -> dict:
+    """Phase 18b: `scripts/switching_demo.py` on a copy of the committed
+    switching run dir (both packages serve it with `SW_BACKBONE` narrowed
+    to `TINY`), on the card, against JAX's committed table: per noise level
+    the small-branch share within one patch, the mean predicted noise
+    within 1e-4, the RMS within 0.01 deg; MuPS launched once a batch."""
+    from nestinet_tpu_torch.cli import synth
+    from nestinet_tpu_torch.models import backbones
+    from nestinet_tpu_torch.scripts import switching_demo
+
+    with open(os.path.join(root, SWITCH_RUN, "jax_switching_demo.txt")) as f:
+        want = json.loads(f.read().strip().splitlines()[-1])
+    data, run = os.path.join(tmp, "switch_data"), os.path.join(tmp, "switch_run")
+    _quiet(synth.main, ["--root", data, *SWITCH_SYNTH])
+    shutil.copytree(os.path.join(root, SWITCH_RUN, "run"), run)
+    saved, backbones.SW_BACKBONE = backbones.SW_BACKBONE, backbones.TINY
+    try:
+        for k in kernels:
+            k.reset_launches()
+        got, _ = _quiet(switching_demo.main, [run, "--data", data, "--device", "cuda"])
+        launches = _launch_counts(kernels)
+    finally:
+        backbones.SW_BACKBONE = saved
+    batches = -(-got["n_patches"] // 256)
+    worst = {"share_patches": 0.0, "noise": 0.0, "rms": 0.0}
+    for sigma, w in want["per_sigma"].items():
+        g, n = got["per_sigma"][sigma], got["patches_per_sigma"][sigma]
+        worst["share_patches"] = max(worst["share_patches"],
+                                     abs(g["small_branch_frac"] - w["small_branch_frac"]) * n)
+        worst["noise"] = max(worst["noise"], abs(g["mean_noise_pred"] - w["mean_noise_pred"]))
+        worst["rms"] = max(worst["rms"], abs(g["rms_deg"] - w["rms_deg"]))
+    print(f"phase 18b: switching_demo, {got['n_patches']} patches: small-branch share "
+          f"{got['small_branch_share']:.4f} (JAX {want['small_branch_share']:.4f}), RMS "
+          f"{got['rms_deg']:.4f} deg (JAX {want['rms_deg']:.4f}); per noise level the worst "
+          f"share gap {worst['share_patches']:.2f} patches, mean noise {worst['noise']:.2e}, "
+          f"RMS {worst['rms']:.2e} deg; launches {launches}, {got['seconds']:.2f} s of "
+          f"serving [{card}]", flush=True)
+    if not (worst["share_patches"] <= 1 + 1e-9 and worst["noise"] <= SWITCH_NOISE_ATOL
+            and worst["rms"] <= SWITCH_RMS_ATOL_DEG and got["n_patches"] == want["n_patches"]):
+        fail(f"phase 18b: switching_demo departs from JAX's table: {worst}")
+    if launches["tdmfv_n_est"] != batches:
+        fail(f"phase 18b: {launches['tdmfv_n_est']} MuPS launches for {batches} batches")
+    return {"worst": worst, "launches": launches, "small_branch_share":
+            got["small_branch_share"], "rms_deg": got["rms_deg"], "seconds": got["seconds"]}
+
+
+def phase18c(dev, card) -> dict:
+    """Phase 18c: the port's EM (`ops/gmm.py::get_learned_gmm`, seeded) fits
+    a K = 64 diagonal GMM to 65,536 of the served rows' points (phase 4's
+    768 rows at PCPNet's density); both MuPS kernels run on its unequal
+    weights and anisotropic sigmas against the plain version at atol 1e-5,
+    the blocked one identical to kernel 1 at every block_b."""
+    import numpy as np
+    import torch
+
+    from nestinet_tpu_torch.core.device import cuda_median_ms
+    from nestinet_tpu_torch.ops import mups as mups_ops
+    from nestinet_tpu_torch.ops.gmm import get_learned_gmm
+    from nestinet_tpu_torch.ops.kernels import mups_cuda
+    from nestinet_tpu_torch.scripts.mups_kernel_parts import served_rows
+
+    with torch.inference_mode():
+        pts, n_eff = served_rows(dev, SEED)
+    real = pts[torch.arange(pts.shape[1], device=dev)[None, :] < n_eff[:, None]]
+    real = real.cpu().numpy().astype(np.float64)
+    rng = np.random.default_rng(SEED)
+    sample = real[rng.choice(len(real), min(LEARNED_POINTS, len(real)), replace=False)]
+    t0 = time.perf_counter()
+    learned = get_learned_gmm(sample, LEARNED_K, seed=SEED)
+    fit_s = time.perf_counter() - t0
+    gmm_t = tuple(torch.from_numpy(a).to(dev) for a in learned.astuple())
+    with torch.inference_mode():
+        out = mups_cuda.tdmfv_n_est_cuda(pts, *gmm_t, n_eff)
+        plain = mups_ops.tdmfv_n_est_reference(pts, *gmm_t, n_eff)
+        err = (out - plain).abs().max().item()
+        diffs = {bb: (mups_cuda.tdmfv_n_est_blocked_cuda(pts, *gmm_t, n_eff, bb) - out)
+                 .abs().max().item() for bb in BLOCKS}
+        ms = cuda_median_ms(lambda: mups_cuda.tdmfv_n_est_cuda(pts, *gmm_t, n_eff))
+        plain_ms = cuda_median_ms(lambda: mups_ops.tdmfv_n_est_reference(pts, *gmm_t, n_eff),
+                                  warmup=1, iters=5)
+    sig = learned.sigma
+    print(f"phase 18c: learned GMM, K = {LEARNED_K}, fitted to {len(sample)} of the "
+          f"{len(real)} served points in {fit_s:.2f} s: weights {learned.weights.min():.4f}-"
+          f"{learned.weights.max():.4f}, sigma {sig.min():.4f}-{sig.max():.4f} (per-axis "
+          f"ratio up to {(sig.max(1) / sig.min(1)).max():.2f}); MuPS kernel 1 max abs err "
+          f"{err:.2e} (atol {KERNEL_ATOL}), blocked minus kernel 1 {diffs}; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms per {pts.shape[0]} rows [{card}]", flush=True)
+    if not err <= KERNEL_ATOL:
+        fail(f"phase 18c: MuPS kernel 1 on the learned GMM differs from the plain version: "
+             f"{err}")
+    if any(d != 0 for d in diffs.values()):
+        fail(f"phase 18c: the blocked kernel differs from kernel 1 on the learned GMM: {diffs}")
+    return {"fit_seconds": fit_s, "points": len(sample), "max_abs_err": err,
+            "blocked_diff": diffs, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase18d(tmp, data, run, kernels, card) -> dict:
+    """Phase 18d: the two quality scripts at full width on random weights.
+    `run_quality` serves phase 7's run dir in device-sparse int8+fold, each
+    of the six testsets cut to its first shape (a data dir of links to
+    phase 7's files); `switching_demo` serves phase 14a's `ms_sw_n_est` run
+    dir (full `SW_BACKBONE`) on phase 14's two switching shapes.  Each with
+    the launch counts set to 0 before and read after: MuPS launched once a
+    batch, the int8 kernel in `run_quality`; every RMS finite."""
+    import numpy as np
+
+    from nestinet_tpu_torch.scripts import run_quality, switching_demo
+
+    cut = os.path.join(tmp, "quality_full_data")
+    os.makedirs(cut)
+    lists = {ts + ".txt" for ts in run_quality.TESTSETS}
+    for name in os.listdir(data):
+        if name not in lists:
+            os.symlink(os.path.join(data, name), os.path.join(cut, name))
+    for ts in lists:
+        with open(os.path.join(data, ts)) as f:
+            first = f.read().split()[0]
+        with open(os.path.join(cut, ts), "w") as f:
+            f.write(first + "\n")
+    for k in kernels:
+        k.reset_launches()
+    got, _ = _quiet(run_quality.main, [run, "--data", cut, "--batch", str(DEVICE_BATCH),
+                                       "--results_name", "full", "--device", "cuda",
+                                       "--extraction", "device", "--mode", "sparse",
+                                       "--dtype", "int8", "--fold_bn", "1"])
+    q_launches = _launch_counts(kernels)
+    stats = got["stats"].values()
+    batches, patches = sum(st["n_batches"] for st in stats), sum(st["n_patches"] for st in stats)
+    rms = {ts: v["rms"] for ts, v in got["summary"].items()}
+    print(f"phase 18d: run_quality at full width (phase 7's run dir, random weights, "
+          f"device-sparse int8+fold, one shape a testset): {patches} patches in {batches} "
+          f"batches, {patches / sum(st['seconds'] for st in stats):.1f} patches/s, RMS "
+          + ", ".join(f"{ts} {v:.3f}" for ts, v in rms.items())
+          + f" deg, launches {q_launches} [{card}]", flush=True)
+    if len(rms) != 6 or not all(np.isfinite(v) for v in rms.values()):
+        fail(f"phase 18d: run_quality at full width gave {rms}")
+    if q_launches["tdmfv_n_est"] != batches or q_launches["int8_conv3d"] == 0:
+        fail(f"phase 18d: run_quality at full width launched {q_launches} for {batches} "
+             f"batches")
+
+    sw_data = os.path.join(tmp, "switching")
+    with open(os.path.join(sw_data, "testset_switching.txt")) as f:
+        names = f.read().split()
+    with open(os.path.join(sw_data, "testset_switching_noise_levels.txt")) as f:
+        levels = dict(zip(names, f.read().split()))
+    with open(os.path.join(sw_data, "testset_two.txt")) as f:
+        two = f.read().split()
+    with open(os.path.join(sw_data, "testset_demo.txt"), "w") as f:
+        f.write("\n".join(two) + "\n")
+    with open(os.path.join(sw_data, "testset_demo_noise_levels.txt"), "w") as f:
+        f.write("\n".join(levels[n] for n in two) + "\n")
+    for k in kernels:
+        k.reset_launches()
+    sw, _ = _quiet(switching_demo.main, [os.path.join(tmp, "run_ms_sw_n_est"), "--data",
+                                         sw_data, "--testset", "testset_demo.txt",
+                                         "--batch", str(DEVICE_BATCH), "--device", "cuda"])
+    sw_launches = _launch_counts(kernels)
+    sw_batches = -(-sw["n_patches"] // DEVICE_BATCH)
+    print(f"phase 18d: switching_demo at full width (phase 14a's run dir, random weights, "
+          f"{len(two)} shapes): {sw['n_patches']} patches, small-branch share "
+          f"{sw['small_branch_share']:.4f}, RMS {sw['rms_deg']:.3f} deg, per noise level "
+          f"{sw['per_sigma']}, launches {sw_launches}, {sw['seconds']:.2f} s of serving "
+          f"[{card}]", flush=True)
+    finite = [sw["rms_deg"], *(v for row in sw["per_sigma"].values() for v in row.values())]
+    if not sw["n_patches"] or not all(np.isfinite(v) for v in finite):
+        fail(f"phase 18d: switching_demo at full width gave {sw}")
+    if sw_launches["tdmfv_n_est"] != sw_batches:
+        fail(f"phase 18d: switching_demo at full width launched {sw_launches} for "
+             f"{sw_batches} batches")
+    return {"run_quality": {"rms": rms, "patches": patches, "batches": batches,
+                            "launches": q_launches},
+            "switching_demo": {"rms_deg": sw["rms_deg"], "n_patches": sw["n_patches"],
+                               "small_branch_share": sw["small_branch_share"],
+                               "launches": sw_launches}}
+
+
+def phase18(tmp, data, run, dev, kernels, card) -> dict:
+    """Phase 18: the quality bar on the committed trained run dirs (a, b),
+    the learned GMM on the card (c), and the two quality scripts at full
+    width (d)."""
+    t18 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    record = {"quality": phase18a(tmp, root, kernels, card),
+              "switching": phase18b(tmp, root, kernels, card),
+              "learned_gmm": phase18c(dev, card),
+              "full_width": phase18d(tmp, data, run, kernels, card)}
+    record["seconds"] = time.perf_counter() - t18
+    print(f"phase 18: the phase took {record['seconds']:.1f} s", flush=True)
+    return record
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="GPU smoke test of the PyTorch port")
     parser.add_argument("--record", default=None,
@@ -2675,6 +2986,9 @@ def main(argv=None) -> int:
         print(f"phase 17: 17b took {time.perf_counter() - t17:.1f} s; 17a's steps took "
               f"{[round(r['seconds'], 1) for r in ep_step['ranks']]} s a rank inside phase 16b's "
               f"launch", flush=True)
+
+        # ---- 18. the quality bar, the quality scripts, the learned GMM ----
+        quality = phase18(tmp, data, rd.path, dev, kernels, card)
         if "jax" in sys.modules:
             fail("jax was imported")
 
@@ -2696,6 +3010,7 @@ def main(argv=None) -> int:
         "batch_normals_max_abs_err": nerr,
         "ablations": ablations, "jax_run_dir_on_card": jax_fixture,
         "scan": scan, "cli_tools": tools, "data_parallel": dp, "expert_parallel": ep,
+        "quality": quality,
     })
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)
@@ -2722,6 +3037,14 @@ def main(argv=None) -> int:
             "launches_expert_parallel": {
                 "train_step_per_rank": [r["launches"] for r in ep["step"]["ranks"]],
                 "cli_test": ep["cli_test_launches"]["tdmfv_n_est"]},
+            "launches_quality": {m: q["launches"]["tdmfv_n_est"]
+                                 for m, q in quality["quality"].items()},
+            "launches_switching_demo": quality["switching"]["launches"]["tdmfv_n_est"],
+            "launches_full_width_scripts": {
+                s: quality["full_width"][s]["launches"]["tdmfv_n_est"]
+                for s in ("run_quality", "switching_demo")},
+            "max_abs_err_learned_gmm": quality["learned_gmm"]["max_abs_err"],
+            "ms_learned_gmm": quality["learned_gmm"]["ms"],
             "max_abs_err": k1_err,
             "ms": k1_ms[R],
             "plain_ms": plain_ms[R],
@@ -2748,6 +3071,7 @@ def main(argv=None) -> int:
             "ms_by_block_b": blocked,
             "ms_served_rows": served["blocked_ms"][max(BLOCKS)],
             "ms_served_rows_by_block_b": served["blocked_ms"],
+            "diff_from_kernel_learned_gmm": quality["learned_gmm"]["blocked_diff"],
         },
         {
             "name": "int8_conv3d",
@@ -2759,6 +3083,10 @@ def main(argv=None) -> int:
             "launches_ss_int8_fold":
                 ablations["ss_norm_est"]["serving"]["int8+fold"]["launches"]["int8_conv3d"],
             "launches_data_parallel": dp_launches(dp, "int8_conv3d"),
+            "launches_quality": {m: q["launches"]["int8_conv3d"]
+                                 for m, q in quality["quality"].items()},
+            "launches_full_width_run_quality":
+                quality["full_width"]["run_quality"]["launches"]["int8_conv3d"],
             "max_abs_err": i8_err,
             "ms": i8_widest["ms"],
             "plain_ms": i8_widest["plain_ms"],

@@ -15,8 +15,8 @@ Layout (each module mirrors its counterpart in `nestinet_tpu/`):
               loader, the native patch sampler, the rotation augmentation,
               the synthetic benchmark generator
     eval/     RMS / PGP scoring of `.normals` files
-    ops/      grid GMM, MuPS statistics (plain + CUDA kernels), NN blocks,
-              the grid-hash ball query
+    ops/      grid and learned GMMs, MuPS statistics (plain + CUDA
+              kernels), NN blocks, the grid-hash ball query
     csrc/     CUDA C++ kernel sources, built with nvcc at first use, and the
               host C++ sources, built with g++ at first use
     models/   backbone specs, the experts_n_est mixture of experts, losses
@@ -25,8 +25,10 @@ Layout (each module mirrors its counterpart in `nestinet_tpu/`):
               data mesh and its collectives, the multi-process launcher
     infer/    streaming whole-shape inference (host or device extraction,
               routed or dense MoE) + .normals writer
-    cli/      the training and inference CLIs
-    scripts/  the blocked-MuPS-kernel experiment
+    cli/      the training, inference, evaluation, synthesis and fetch CLIs
+    scripts/  the quality scripts (`run_quality`, `switching_demo`), the
+              kernels' experiments and timing scripts
+    viz/      the NumPy helpers of the JAX package's plots (no renders)
     convert   haiku <-> torch weight conversion
 
 Ported so far: training every model family in float32 or bfloat16 (the

@@ -4,8 +4,9 @@
 per-expert error and usage summary
 (`images/expert_statistics/<set>_expert_statistics.json`).
 `--export_visualizations 1` raises NotImplementedError: its plots need
-matplotlib and the JAX package's `viz/`, not ported (ROADMAP queue 1,
-item 6).
+matplotlib and the JAX package's `viz/` renders, not ported (ROADMAP
+queue 1, item 4, the matplotlib renders; `nestinet_tpu_torch/viz/` holds
+the NumPy helpers they are drawn from).
 
 Example:
     python -m nestinet_tpu_torch.cli.evaluate \\

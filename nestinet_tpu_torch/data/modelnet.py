@@ -33,7 +33,7 @@ def _h5py():
     except ImportError as e:
         raise ImportError(
             "the ModelNet loaders read HDF5 through h5py, which is not installed "
-            "(ROADMAP.md queue 1, item 6: library leftovers wait for their libraries)") from e
+            "(ROADMAP.md queue 1, item 4: what waits for a library the card lacks)") from e
     return h5py
 
 

@@ -2,7 +2,8 @@
 
 A copy of `nestinet_tpu/eval/evaluate.py`, so the port scores its own
 outputs.  Its visualization export (`export=True`) needs matplotlib and
-the JAX package's `viz/`, which are not ported (ROADMAP queue 1, item 6):
+the JAX package's `viz/` renders, which are not ported (ROADMAP queue 1,
+item 4, the matplotlib renders):
 it raises NotImplementedError.  Parity with
 `utils/evaluate.py`: per dataset list, load GT `.xyz/.normals` +
 predicted `.normals` + `.pidx` sparse-eval indices, subset to pidx,
@@ -36,7 +37,7 @@ def evaluate_dataset(
     if export:
         raise NotImplementedError(
             "the visualization export (plots and renders) needs matplotlib and "
-            "viz/, not ported yet: ROADMAP.md queue 1, item 6 (library leftovers)"
+            "the viz/ renders, not ported: ROADMAP.md queue 1, item 4 (the matplotlib renders)"
         )
     list_path = os.path.join(data_path, dataset + ".txt")
     if not os.path.exists(list_path):

@@ -7,7 +7,7 @@ and the winning-expert ids (`.experts`) written by the MoE inference
 path, subset to the `.pidx` evaluation points, and accumulate per-expert
 angular-error sums and usage counts (angle formula parity:
 `compute_expert_statistics.m:60-67`).  The JAX package also draws bar
-charts with matplotlib; those are not ported (ROADMAP queue 1, item 6),
+charts with matplotlib; those are not ported (ROADMAP queue 1, item 4),
 and `export_plots=True` raises NotImplementedError.
 """
 
@@ -58,8 +58,8 @@ def compute_expert_statistics(
     """
     if export_plots:
         raise NotImplementedError(
-            "the expert-statistics bar charts need matplotlib, not ported yet: "
-            "ROADMAP.md queue 1, item 6 (library leftovers)"
+            "the expert-statistics bar charts need matplotlib, not ported: "
+            "ROADMAP.md queue 1, item 4 (the matplotlib renders)"
         )
     with open(os.path.join(data_path, dataset + ".txt")) as f:
         shapes = [s.strip() for s in f if s.strip()]

@@ -84,6 +84,7 @@ def load_run(run_dir: str, device: torch.device, compute_dtype: str | None = Non
     gmm = GridGMM.load(rd.gmm_path)
     model = build_model(cfg, gmm)
     payload = checkpoint.load_for_serving(rd.path, torch.device("cpu"), cfg)
+    check_widths(model, payload["state_dict"], run_dir, cfg.model)
     model.load_state_dict(payload["state_dict"])
     if model.fold_bn:
         fold_bn_(model)
@@ -91,6 +92,27 @@ def load_run(run_dir: str, device: torch.device, compute_dtype: str | None = Non
         quantize_(model)
     model.to(device).eval()
     return rd, cfg, gmm, model
+
+
+def check_widths(model: torch.nn.Module, state_dict: dict, run_dir: str, model_name: str):
+    """Raise a ValueError naming the first tensor whose shape differs
+    between the checkpoint and the model that config.json builds.  The
+    switching model's CNNs take `models/backbones.py::SW_BACKBONE`, which
+    config.json does not record: a run trained with it narrowed is served
+    only with the same narrowing."""
+    want = model.state_dict()
+    bad = [k for k, v in state_dict.items() if k in want and v.shape != want[k].shape]
+    if not bad:
+        return
+    hint = (" The switching model's CNNs take models/backbones.py::SW_BACKBONE, which "
+            "config.json does not record: a run trained with it narrowed (as "
+            "nestinet_tpu_torch/testdata/jax_run_switching) is served with the same "
+            "narrowing." if model_name == "ms_sw_n_est" else "")
+    k = bad[0]
+    raise ValueError(f"{run_dir}: the checkpoint does not fit the {model_name} of its "
+                     f"config.json: {len(bad)} tensors differ, first {k}, "
+                     f"{tuple(state_dict[k].shape)} in the checkpoint and "
+                     f"{tuple(want[k].shape)} in the model." + hint)
 
 
 def pad_batch(batch: dict, batch_size: int) -> dict:

@@ -43,6 +43,7 @@ from nestinet_tpu_torch.train.trainer import Trainer
 
 from .test_torch_ablations import ABLATIONS, narrow_backbones
 from .test_torch_native_race import load_jax_native
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

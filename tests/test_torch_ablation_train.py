@@ -57,6 +57,7 @@ from nestinet_tpu_torch.train import train_step as tts
 
 from .test_torch_ablations import ABLATIONS, make_case, narrow_backbones, port_model
 from .test_torch_train_step import assert_noise_tolerant, bn_fed_biases
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

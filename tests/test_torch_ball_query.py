@@ -19,6 +19,7 @@ from nestinet_tpu.infer import device_pipeline as jax_pipeline
 from nestinet_tpu.ops import ball_query as jbq
 from nestinet_tpu_torch.infer import device_pipeline
 from nestinet_tpu_torch.ops import ball_query as tbq
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -34,6 +34,7 @@ from nestinet_tpu_torch.eval.evaluate import evaluate_datasets
 from nestinet_tpu_torch.eval.expert_stats import compute_expert_statistics
 
 from .test_torch_slice import build_data, build_run
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -144,9 +145,9 @@ def test_cli_synth_equals_jax(tmp_path, capsys, switching):
 def test_unported_plots_raise(served, tmp_path):
     data, run, _ = served
     results = os.path.join(run, "jax_results")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         evaluate_datasets(data, results, list(LISTS), export=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         _evaluate(cli_evaluate.main, results, data, ["--export_visualizations", "1"])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         compute_expert_statistics(data, results, "scene_a", export_plots=True)

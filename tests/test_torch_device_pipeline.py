@@ -27,6 +27,7 @@ from nestinet_tpu.infer.device_pipeline import predict_shapes_device as jax_pred
 from nestinet_tpu_torch.infer.device_pipeline import predict_shapes_device
 
 from .test_torch_slice import N_POINTS, build_data, build_run
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

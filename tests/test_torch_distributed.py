@@ -31,6 +31,7 @@ from nestinet_tpu_torch.train import distributed, mesh
 
 from . import test_torch_dp_workers as workers
 from .test_torch_trainer import data  # noqa: F401  (the `data` fixture)
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -38,6 +38,7 @@ from nestinet_tpu_torch.train import distributed
 from . import test_torch_dp_workers as workers
 from .test_torch_serve_bf16 import INT8_BARS, check_against_jax
 from .test_torch_slice import BATCH, N_POINTS, build_data, build_run
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

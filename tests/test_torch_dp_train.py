@@ -62,6 +62,12 @@ from .test_torch_experts import random_bn
 from .test_torch_train_step import cfgs as moe_cfgs
 from .test_torch_train_step import make_batch as moe_batch
 from .test_torch_trainer import data, tiny_cfg  # noqa: F401  (the `data` fixture)
+from tests._torch_disk import (  # noqa: F401
+    LIMIT_BYTES,
+    bytes_left,
+    remove_module_tmp,
+    remove_tmp_path,
+)
 
 torch.set_num_threads(1)
 
@@ -275,3 +281,15 @@ def test_cli_train_data_parallel_resumes_like_one_process(data, tmp_path):  # no
 def test_trainer_needs_a_group_for_data_parallel(data, tmp_path):  # noqa: F811
     with pytest.raises(ValueError, match="distributed.launch"):
         Trainer(tiny_cfg(data, str(tmp_path / "r"), data_parallel=2), device="cpu")
+
+
+@pytest.mark.parametrize("test", [
+    "test_cli_train_data_parallel_resumes_like_one_process",
+])
+def test_leaves_little_in_tmp_path(request, test):
+    """Runs after the file's other tests (keep it last): the checkpoints
+    `test` wrote are gone from its `tmp_path` once it passed
+    (`tests/_torch_disk.py`); before they were removed this file's CLI
+    tests left hundreds of MB each in pytest's basetemp."""
+    left = bytes_left(request, test)
+    assert left < LIMIT_BYTES, f"{test} left {left} bytes in its tmp_path"

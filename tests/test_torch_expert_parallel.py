@@ -73,6 +73,12 @@ from .test_torch_dp_train import _argv, _eval_rms
 from .test_torch_experts import random_bn
 from .test_torch_flax_reader import write_jax_run
 from .test_torch_trainer import data  # noqa: F401  (the `data` fixture)
+from tests._torch_disk import (  # noqa: F401
+    LIMIT_BYTES,
+    bytes_left,
+    remove_module_tmp,
+    remove_tmp_path,
+)
 
 torch.set_num_threads(1)
 
@@ -435,3 +441,16 @@ def test_cli_train_expert_parallel_resumes_across_layouts(data, tmp_path):  # no
     for shape, normals in served["ep"].items():
         assert np.isfinite(normals).all()
         np.testing.assert_allclose(normals, served["one"][shape], atol=1e-4)
+
+
+@pytest.mark.parametrize("test", [
+    "test_cli_train_expert_parallel_resumes_across_layouts",
+    "test_jax_run_dir_resumes_under_expert_parallelism",
+])
+def test_leaves_little_in_tmp_path(request, test):
+    """Runs after the file's other tests (keep it last): the checkpoints
+    `test` wrote are gone from its `tmp_path` once it passed
+    (`tests/_torch_disk.py`); before they were removed this file's CLI
+    tests left hundreds of MB each in pytest's basetemp."""
+    left = bytes_left(request, test)
+    assert left < LIMIT_BYTES, f"{test} left {left} bytes in its tmp_path"

@@ -20,6 +20,7 @@ from nestinet_tpu_torch import convert
 from nestinet_tpu_torch.models import backbones
 from nestinet_tpu_torch.models import build_model
 from nestinet_tpu_torch.ops.gmm import GridGMM
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -45,6 +45,7 @@ from .test_torch_ablations import (ABLATIONS, ablation_cfgs, make_batch, narrow_
                                    port_eval, random_bn_flat)
 from .test_torch_experts import random_bn
 from .test_torch_train_step import bn_fed_biases
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -28,6 +28,7 @@ from nestinet_tpu_torch.ops.quant import quantize_
 
 from .test_torch_dtypes import assert_bf16_close, to_f32
 from .test_torch_experts import random_bn
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

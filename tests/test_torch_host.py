@@ -29,6 +29,7 @@ from nestinet_tpu_torch.eval.evaluate import evaluate_dataset
 
 from .fixtures import make_plane, make_sphere, write_pcpnet_dataset
 from .test_torch_native_race import load_jax_native
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 
 def _files(root):

@@ -21,6 +21,7 @@ from nestinet_tpu.data import rotations as jax_rotations
 from nestinet_tpu.ops.gmm import get_3d_grid_gmm as jax_grid_gmm
 from nestinet_tpu_torch.data import augment, modelnet, ply, pointcloud, rotations
 from nestinet_tpu_torch.ops.gmm import get_3d_grid_gmm
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 
 def assert_same(got, want):
@@ -185,5 +186,5 @@ def test_modelnet_loads_alike(tmp_path):
 
 def test_modelnet_without_h5py_names_it(tmp_path):
     with mock.patch.dict(sys.modules, {"h5py": None}):
-        with pytest.raises(ImportError, match="h5py.*ROADMAP.md queue 1, item 6"):
+        with pytest.raises(ImportError, match="h5py.*ROADMAP.md queue 1, item 4"):
             modelnet.load_h5(str(tmp_path / "missing.h5"))

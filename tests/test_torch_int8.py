@@ -31,6 +31,7 @@ from nestinet_tpu_torch.ops import quant
 from nestinet_tpu_torch.ops.kernels import int8_cuda
 
 from .test_torch_dtypes import assert_bf16_close, to_f32
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -31,6 +31,7 @@ import sys
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import numpy as np  # noqa: E402
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: E402,F401
 
 FIXTURE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "nestinet_tpu_torch", "testdata", "jax_run_moe3")

@@ -23,6 +23,7 @@ from nestinet_tpu.models import losses as jlosses
 from nestinet_tpu.train import schedules as jsched
 from nestinet_tpu_torch.models import losses
 from nestinet_tpu_torch.train import schedules
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 TOL = dict(atol=1e-6, rtol=1e-5)
 LOSS_TYPES = ("cos", "euclidean", "sin")

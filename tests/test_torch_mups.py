@@ -19,6 +19,7 @@ from nestinet_tpu.ops.mups import mups as jax_mups
 from nestinet_tpu.ops.mups import tdmfv_n_est
 from nestinet_tpu.ops.pallas import mups_kernel
 from nestinet_tpu_torch.ops import mups as torch_mups
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

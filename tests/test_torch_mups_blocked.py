@@ -19,6 +19,7 @@ import torch
 
 from nestinet_tpu.ops.gmm import get_3d_grid_gmm
 from nestinet_tpu_torch.scripts import mups_kernel_exp
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -29,6 +29,7 @@ import torch
 from nestinet_tpu.ops.gmm import get_3d_grid_gmm
 from nestinet_tpu.ops.mups import tdmfv_n_est
 from nestinet_tpu_torch.ops import mups as torch_mups
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 f32, f64 = np.float32, np.float64
 WARP = 32

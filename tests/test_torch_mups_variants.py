@@ -22,6 +22,7 @@ import torch
 from nestinet_tpu.ops import gmm as jax_gmm
 from nestinet_tpu_torch.ops import gmm
 from nestinet_tpu_torch.ops import mups
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 jax_mups = importlib.import_module("nestinet_tpu.ops.mups")  # `ops.mups` is a function
 
@@ -126,9 +127,12 @@ def test_grid_gmms_equal_jax(dim, n):
 
 
 def test_learned_and_unknown_gmms_raise():
+    """The learned GMM fits (`tests/test_torch_gmm_fetch_viz.py` holds it to
+    sklearn); an unknown type and a grid in 4-D raise."""
     points = np.random.RandomState(0).uniform(-1, 1, (50, 3))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        gmm.get_gmm(points, 4, type="learn")
+    learned = gmm.get_gmm(points, 4, type="learn", seed=0)
+    assert isinstance(learned, gmm.GridGMM) and learned.means.shape == (4, 3)
+    np.testing.assert_allclose(learned.weights.sum(), 1.0, rtol=1e-12)
     with pytest.raises(ValueError, match="unknown GMM type"):
         gmm.get_gmm(points, 4, type="kmeans")
     with pytest.raises(ValueError, match="dim 2 or 3"):

@@ -26,6 +26,7 @@ import numpy as np
 
 from nestinet_tpu.data import native as jax_native
 from nestinet_tpu_torch.data import native
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 LOCK_PATH = os.path.join(os.path.dirname(native._LIB), "jax_native.lock")
 RETRIES = 8

@@ -22,6 +22,7 @@ import torch
 from nestinet_tpu.ops import nn as jnn
 from nestinet_tpu_torch import convert
 from nestinet_tpu_torch.ops import nn as tnn
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

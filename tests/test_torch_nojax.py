@@ -25,6 +25,7 @@ import sys
 import textwrap
 
 import pytest
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

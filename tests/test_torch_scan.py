@@ -35,6 +35,7 @@ from nestinet_tpu_torch.data import depth
 from nestinet_tpu_torch.infer.scan import load_depth, predict_scan
 
 from .test_torch_slice import build_data, build_run
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from .test_torch_serve_bf16 import BF16_BARS, PATHS, check_against_jax, serve_both
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -32,6 +32,7 @@ from nestinet_tpu_torch.infer.predict import predict_shapes
 
 from .test_torch_experts import random_bn, tiny_cfg
 from .test_torch_native_race import load_jax_native
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

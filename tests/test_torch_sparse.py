@@ -19,6 +19,7 @@ from nestinet_tpu.infer.predict import predict_shapes as jax_predict_shapes
 from nestinet_tpu_torch.infer.predict import load_run, predict_shapes, route_sparse
 
 from .test_torch_slice import BATCH, N_POINTS, build_data, build_run
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -30,6 +30,7 @@ from nestinet_tpu_torch.core.profiling import trace
 from nestinet_tpu_torch.train.trainer import Trainer
 
 from .test_torch_trainer import data, tiny_cfg  # noqa: F401 (the fixture)
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

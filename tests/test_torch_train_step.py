@@ -54,6 +54,7 @@ from nestinet_tpu_torch.ops.gmm import GridGMM
 from nestinet_tpu_torch.train import train_step as tts
 
 from .test_torch_experts import random_bn
+from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -34,6 +34,12 @@ from nestinet_tpu_torch.train.trainer import Trainer
 
 from .fixtures import make_plane, make_sphere, write_pcpnet_dataset
 from .test_torch_native_race import load_jax_native
+from tests._torch_disk import (  # noqa: F401
+    LIMIT_BYTES,
+    bytes_left,
+    remove_module_tmp,
+    remove_tmp_path,
+)
 
 torch.set_num_threads(1)
 
@@ -241,3 +247,17 @@ def test_cli_train_resumes_in_place(data, tmp_path):
         assert "resumed from epoch 0" in f.read()
     assert checkpoint.load(log_dir, torch.device("cpu"))["epoch"] == 1
     assert Config.load(cfg_path).max_epoch == 2
+
+
+@pytest.mark.parametrize("test", [
+    "test_cli_train_resumes_in_place",
+    "test_resumed_run_equals_an_unbroken_run",
+    "test_resume_never_regresses_the_best_checkpoint",
+])
+def test_leaves_little_in_tmp_path(request, test):
+    """Runs after the file's other tests (keep it last): the checkpoints
+    `test` wrote are gone from its `tmp_path` once it passed
+    (`tests/_torch_disk.py`); before they were removed this file's CLI
+    tests left hundreds of MB each in pytest's basetemp."""
+    left = bytes_left(request, test)
+    assert left < LIMIT_BYTES, f"{test} left {left} bytes in its tmp_path"
