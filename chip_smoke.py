@@ -44,9 +44,10 @@ and prints no result):
      from a seed, the manager's last layer rescaled so that patches route
      to several experts) serves the 6-shape synthetic testset (30,000
      patches) in float32 through `predict_shapes_device` (device
-     extraction, argmax-only routing, batch 256): one MuPS launch per
-     batch, finite normals, ids in [0, 7), a finite RMS from
-     `eval/evaluate.py`;
+     extraction, argmax-only routing on JAX's schedule, batch 256): one
+     MuPS launch per batch, finite normals, ids in [0, 7), a finite RMS
+     from `eval/evaluate.py`; every routed path prints its router's expert
+     runs, forced flushes and window;
   8. the host routed path (`predict_shapes`, kd-tree extraction, batch
      128) on the same run dir and two of the shapes (10,000 patches),
      checked the same way;
@@ -58,14 +59,17 @@ and prints no result):
      BatchNorm folded, in int8 and in int8 with BatchNorm folded (the mode
      JAX serves after `restore_model` folds, then quantizes), each on the
      30,000 patches, checked as in phase 7; the int8 paths must launch the
-     int8 kernel and the others must not;
+     int8 kernel, once a conv or linear layer of the manager a batch and of
+     the expert a run (`int8_calls`, `check_int8_launches`), and the others
+     must not;
  11. one device batch in each dtype, routed and dense: manager ids
      identical (under int8 too: the manager sees the same batch), bfloat16
      normals within 5% of the largest |normal| (cuDNN may sum a sub-batch
      in another order); each dtype's agreement with float32 printed, not
      held (random weights); the manager's time and its device-time split
      (convolutions, int8 kernel) in each dtype; under int8 the device
-     launches of one routed batch and of one conv (`torch.profiler`);
+     launches of one batch routed on its own (`route_sparse`) and of one
+     conv (`torch.profiler`);
  12. times: both MuPS kernels and their plain version (CUDA events, median
      after warm-up) on random and on served rows, each beside its bound,
      extraction per batch, the forward, and each serving path's patches/s
@@ -144,7 +148,7 @@ and prints no result):
      code (the gradient all-reduce) equals the plain step bit for bit
      (weights, buffers, gradients; cuDNN's deterministic algorithms on for
      both), and device-sparse float32 serving of one shape in the group
-     writes phase 7's files byte for byte; (b) two ranks on cuda:0 over
+     writes one process's files of that shape byte for byte; (b) two ranks on cuda:0 over
      gloo with CUDA tensors (NCCL refuses two ranks on one GPU): the B =
      256 step, 128 rows a rank with global BatchNorm moments, against the
      one-process step at phase 13a's bars (the spread measured on the card
@@ -154,9 +158,14 @@ and prints no result):
      --data_parallel 2 --backend gloo` for one epoch of 13c's sets; `cli.test
      --data_parallel 2 --backend gloo` with device extraction in float32
      on two of the test shapes (ids identical to phase 7's, normals within
-     1e-4) and in int8 with BatchNorm folded on one (phase 10's files byte
-     for byte), each rank's patches and launches counted.  Two ranks on one
-     card measure the data-parallel path's overhead, not its scaling.
+     1e-4) and in int8 with BatchNorm folded on one (one process's files
+     of that shape byte for byte), each rank's patches, expert runs and
+     launches counted, the routed grids' all-gather timed.  Phase 16 first
+     serves that one shape in one process in float32 and int8+fold, the
+     references of 16a and 16b: routed, an expert run holds rows of several
+     shapes, so a one-shape call's files are not phase 7's or 10's.  Two
+     ranks on one card measure the data-parallel path's overhead, not its
+     scaling.
  17. expert parallelism (`train/mesh.py`'s (data, expert) mesh and expert
      shards, `models/experts.py`'s expert gather) on the one card: (a) in
      phase 16b's launch, after its steps, the same two gloo ranks form a
@@ -182,8 +191,9 @@ and prints no result):
      `anchor.json` (host-dense f32; device-sparse f32, bf16, bf16+fold,
      int8, int8+fold): each testset's RMS within 0.01 deg of JAX's
      host-dense f32 anchor in host-dense f32 and within 0.1 deg in every
-     other mode, one MuPS launch a served batch, the int8 kernel in the
-     int8 modes only; (b) `scripts/switching_demo.py` on the switching run
+     other mode, and within 0.01 deg of JAX's same mode in every mode; one
+     MuPS launch a served batch, the int8 kernel in the int8 modes only, as
+     often as their batches and expert runs make; (b) `scripts/switching_demo.py` on the switching run
      dir (its `SW_BACKBONE` narrowed to `TINY`, as JAX wrote it) against
      JAX's committed table: per noise level the small-branch share within
      one patch, the mean noise within 1e-4, the RMS within 0.01 deg; (c)
@@ -807,10 +817,44 @@ def check_outputs(data, out_dir, testset, n_experts):
     return summary
 
 
-def serve(name, fn, kernels, card, int8: bool = False):
+def int8_calls(model) -> tuple[int, int]:
+    """(manager, expert): the int8 kernel launches of one call of the
+    manager and of one expert run, one a conv or linear layer; every expert
+    must make the same number."""
+    from nestinet_tpu_torch.ops.nn import _Conv3D, _Linear
+
+    def layers(net):
+        return sum(isinstance(m, (_Conv3D, _Linear)) for m in net.modules())
+
+    experts = {layers(e) for e in model.experts}
+    if len(experts) != 1:
+        fail(f"the experts differ in their int8 layers: {sorted(experts)}")
+    return layers(model.manager), experts.pop()
+
+
+def check_int8_launches(name: str, launches: int, batches: int, runs: int, per_call) -> int:
+    """Fail unless a routed int8 path launched the int8 kernel once a layer
+    of the manager a batch and of the expert a run; returns that count."""
+    want = batches * per_call[0] + runs * per_call[1]
+    if launches != want:
+        fail(f"{name}: {launches} int8 kernel launches, where {batches} batches and {runs} "
+             f"expert runs make {want} ({per_call[0]} a manager call, {per_call[1]} a run)")
+    return want
+
+
+def routing_line(stats: dict) -> str:
+    """The router's counts of a routed serving call, for its printed line."""
+    if "expert_runs" not in stats:
+        return ""
+    return (f", expert runs {stats['expert_runs']} ({stats['forced_flushes']} forced "
+            f"flushes, window {stats['window_slots']} slots)")
+
+
+def serve(name, fn, kernels, card, int8: bool = False, int8_per=None):
     """Drive one serving path with every launch count at 0; check that it
     launched the MuPS kernel once per batch, and the int8 kernel if and
-    only if it serves int8."""
+    only if it serves int8; routed in int8, as often as its batches and
+    expert runs make with `int8_per` (`int8_calls`)."""
     import torch
 
     for k in kernels:
@@ -823,7 +867,7 @@ def serve(name, fn, kernels, card, int8: bool = False):
              if "loader_wait_seconds" in stats else "")
     print(f"{name}: {stats['n_patches']} patches in {stats['n_batches']} batches, "
           f"{stats['seconds']:.2f} s, {stats['patches_per_sec']:.1f} patches/s{extra}, "
-          f"peak {peak_gb:.2f} GB, launches {launches}, patches per "
+          f"peak {peak_gb:.2f} GB, launches {launches}{routing_line(stats)}, patches per "
           + (f"branch {stats['branch_rows']}" if "branch_rows" in stats
              else f"expert {stats.get('expert_rows')}") + f" [{card}]", flush=True)
     if launches["tdmfv_n_est"] != stats["n_batches"]:
@@ -831,6 +875,9 @@ def serve(name, fn, kernels, card, int8: bool = False):
              f"{stats['n_batches']}")
     if int8 != (launches["int8_conv3d"] > 0):
         fail(f"{name}: {launches['int8_conv3d']} int8 kernel launches")
+    if int8 and "expert_runs" in stats:
+        check_int8_launches(name, launches["int8_conv3d"], stats["n_batches"],
+                            stats["expert_runs"], int8_per)
     if "jax" in sys.modules:
         fail("jax was imported")
     stats = {k: v for k, v in stats.items() if k not in ("shapes",)}
@@ -864,10 +911,12 @@ def device_time_split(fn):
 
 
 def int8_launch_counts(model, grid, real) -> dict:
-    """Device launches under int8 (`torch.profiler`): one routed batch, its
-    int8 kernel launches, one conv of the manager with a forwarded bound
-    (incep0's k = 3 conv on its 1x1x1 conv's output) and the grid's first
-    conv."""
+    """Device launches under int8 (`torch.profiler`): one batch routed on
+    its own (`route_sparse`, one expert run per expert with rows), its int8
+    kernel launches, the manager on the batch and one expert run of B rows
+    (the router's unit: a served batch makes one manager call and its share
+    of the runs), one conv of the manager with a forwarded bound (incep0's
+    k = 3 conv on its 1x1x1 conv's output) and the grid's first conv."""
     import torch
 
     from nestinet_tpu_torch.infer.predict import route_sparse
@@ -882,6 +931,8 @@ def int8_launch_counts(model, grid, real) -> dict:
         kernel = int8_cuda.KERNEL.launches["int8_conv3d"]
         return {"routed_batch": device_launches(lambda: route_sparse(model, grid, real)),
                 "int8_kernel": kernel,
+                "manager": device_launches(lambda: model.manager_probs(grid)),
+                "expert_run": device_launches(lambda: model.expert_on_grid(0, grid)),
                 "per_conv": device_launches(lambda: block.conv2(one)),
                 "per_first_conv": device_launches(lambda: block.conv1(x))}
 
@@ -1861,8 +1912,8 @@ QUALITY_SAME_MODE_BAR_DEG = {
     "device-sparse f32": 0.01,
     "device-sparse bf16": 0.01,
     "device-sparse bf16+fold": 0.01,
-    "device-sparse int8": 0.06,
-    "device-sparse int8+fold": 0.06,
+    "device-sparse int8": 0.01,
+    "device-sparse int8+fold": 0.01,
 }
 SWITCH_NOISE_ATOL = 1e-4
 SWITCH_RMS_ATOL_DEG = 0.01
@@ -2051,13 +2102,14 @@ def plain_steps(dev, cfg, gmm, batch) -> dict:
     return out
 
 
-def phase16a(dev, cfg, gmm, batch, plain, data, run, dev_sparse_dir):
+def phase16a(dev, cfg, gmm, batch, plain, data, run, one_dir):
     """Phase 16a: an NCCL group of one rank in this process.  The
     full-width float32 train step at B = 256 through the data-parallel code
     (the group's gradient all-reduce) against the plain step from the same
     weights (`plain_steps`), and device-sparse float32 serving of one shape
-    in the group against phase 7's files: both bit for bit (cuDNN's
-    deterministic algorithms on for the steps)."""
+    in the group against the one-process files of that shape
+    (`one_process_refs`): both bit for bit (cuDNN's deterministic
+    algorithms on for the steps)."""
     import torch
     import torch.distributed as dist
 
@@ -2088,11 +2140,11 @@ def phase16a(dev, cfg, gmm, batch, plain, data, run, dev_sparse_dir):
         stats = predict_shapes_device(run, dataset_name="pcpnet_dp1", testset="testset_one.txt",
                                       data_path=data, batch_size=DEVICE_BATCH,
                                       moe_inference="sparse", compute_dtype="float32")
-        same = files_equal(stats["output_dir"], dev_sparse_dir, stats["shapes"])
-        print(f"phase 16a: routed f32 serving in the group, {stats['n_patches']} patches: "
-              f"files identical to phase 7's {same}", flush=True)
+        same = files_equal(stats["output_dir"], one_dir, stats["shapes"])
+        print(f"phase 16a: routed f32 serving in the group, {stats['n_patches']} patches"
+              f"{routing_line(stats)}: files identical to one process's {same}", flush=True)
         if not same:
-            fail("routed serving in a group of one differs from phase 7's files")
+            fail("routed serving in a group of one differs from one process's files")
     finally:
         dist.destroy_process_group()
     return {"loss": loss.item(), "serving_patches": stats["n_patches"]}
@@ -2172,12 +2224,14 @@ def phase16b_step(dev, cfg, batch, plain, card):
             "ranks": ranks, "launch_seconds": secs, "ep": got["ep"]}
 
 
-def phase16b_cli(data, run, dev_sparse, int8_fold, kernels, card):
+def phase16b_cli(data, run, dev_sparse, int8_fold, kernels, card, int8_per):
     """Phase 16b: `cli.train --data_parallel 2 --backend gloo` for one epoch
     of 13c's sets, then `cli.test --data_parallel 2 --backend gloo` with
-    device extraction over the 6-shape testset in float32 (ids identical to
-    phase 7's, normals within 1e-4) and in int8 with BatchNorm folded
-    (files identical to phase 10's int8+fold run); each rank's launches."""
+    device extraction on two shapes in float32 (ids identical to phase 7's,
+    normals within 1e-4) and on one in int8 with BatchNorm folded (files
+    identical to one process's, `one_process_refs`); each rank's batches,
+    expert runs and launches (the int8 kernel's as its batches and runs
+    make), and the routed grids' all-gather timed."""
     import numpy as np
     import torch
 
@@ -2220,19 +2274,30 @@ def phase16b_cli(data, run, dev_sparse, int8_fold, kernels, card):
             check = f"ids identical to phase 7's {ids}, normals max abs err {err:.2e}"
         else:
             same = files_equal(stats["output_dir"], ref["output_dir"], stats["shapes"])
-            check = f"files identical to phase 10's int8+fold run {same}"
+            check = f"files identical to one process's int8+fold run {same}"
         print(f"phase 16b: cli.test --data_parallel {DP_RANKS} device-sparse {label}: "
               f"{stats['n_patches']} patches, {stats['patches_per_sec']:.1f} patches/s "
               f"({stats['seconds']:.1f} s serving, {secs:.1f} s with start-up); per rank "
               f"patches {[r['n_patches'] for r in ranks]}, batches "
-              f"{[r['n_batches'] for r in ranks]}, launches "
-              f"{[r['launches'] for r in ranks]}; {check} [{card}]", flush=True)
+              f"{[r['n_batches'] for r in ranks]}, expert runs "
+              f"{[r['expert_runs'] for r in ranks]} of {stats['expert_runs']} "
+              f"({stats['forced_flushes']} forced flushes, window {stats['window_slots']} "
+              f"slots), grids all-gathered in {1e3 * stats['all_gather_seconds']:.1f} ms on "
+              f"rank 0, launches {[r['launches'] for r in ranks]}; {check} [{card}]",
+              flush=True)
         if not same:
             fail(f"cli.test --data_parallel {DP_RANKS} {label}: {check}")
+        if sum(r["expert_runs"] for r in ranks) != stats["expert_runs"]:
+            fail(f"cli.test --data_parallel {DP_RANKS} {label}: the ranks ran "
+                 f"{[r['expert_runs'] for r in ranks]} of {stats['expert_runs']} expert runs")
         for r in ranks:
             if r["launches"]["tdmfv_n_est"] != r["n_batches"] or (
                     (r["launches"]["int8_conv3d"] > 0) != (dtype == "int8")):
                 fail(f"cli.test --data_parallel {DP_RANKS} {label}: rank launches {r}")
+            if dtype == "int8":
+                check_int8_launches(f"cli.test --data_parallel {DP_RANKS} {label}, a rank",
+                                    r["launches"]["int8_conv3d"], r["n_batches"],
+                                    r["expert_runs"], int8_per)
         if any(k.launches[n] for k in kernels for n in k.launches):
             fail("the two-rank serving launched a kernel in this process")
         out[label] = {k: v for k, v in stats.items() if k != "shapes"} | {
@@ -2373,7 +2438,24 @@ def phase17b(tmp, data, one_process_run, kernels, card) -> dict:
             "cli_test_rms": summary["rms"]}
 
 
-def phase16(tmp, data, dev, cfg, gmm, run, dev_sparse, int8_fold, kernels, card):
+def one_process_refs(data, run, kernels, card, int8_per) -> dict:
+    """Phase 16's one-process serving of `testset_one`, which the group
+    serves: device-sparse float32 (16a) and int8+fold (16b).  Routed, an
+    expert run holds rows of several batches and shapes, so a one-shape
+    call's files are not phase 7's or 10's."""
+    from nestinet_tpu_torch.infer.device_pipeline import predict_shapes_device
+
+    return {label: serve(f"phase 16 one process, device-sparse {label}, one shape",
+                         lambda: predict_shapes_device(
+                             run, dataset_name=f"pcpnet_one_{dtype}_fold{int(fold)}",
+                             testset="testset_one.txt", data_path=data,
+                             batch_size=DEVICE_BATCH, moe_inference="sparse",
+                             compute_dtype=dtype, fold_bn=fold),
+                         kernels, card, int8=dtype == "int8", int8_per=int8_per)
+            for label, dtype, fold in (("f32", "float32", False), ("int8+fold", "int8", True))}
+
+
+def phase16(tmp, data, dev, cfg, gmm, run, dev_sparse, kernels, card, int8_per):
     """Phase 16: data parallelism (`train/distributed.py`, `train/mesh.py`)
     on the one card: the one-process references, (b) the two-rank step
     (launched before this process joins any group; the same launch takes
@@ -2383,15 +2465,16 @@ def phase16(tmp, data, dev, cfg, gmm, run, dev_sparse, int8_fold, kernels, card)
     import torch
 
     t16 = time.perf_counter()
+    refs = one_process_refs(data, run, kernels, card, int8_per)
     batch = training_batch(dev, TRAIN_BATCHES[0], SEED + 2, cfg.patch_radius)
     plain = plain_steps(dev, cfg, gmm, batch)
     record = {"step": phase16b_step(dev, cfg, batch, plain, card)}
     ep_step = phase17a(record["step"].pop("ep"), plain, card)
     record["world_of_one"] = phase16a(dev, cfg, gmm, batch, plain, data, run,
-                                      dev_sparse["output_dir"])
+                                      refs["f32"]["output_dir"])
     del plain, batch
     torch.cuda.empty_cache()
-    record |= phase16b_cli(data, run, dev_sparse, int8_fold, kernels, card)
+    record |= phase16b_cli(data, run, dev_sparse, refs["int8+fold"], kernels, card, int8_per)
     print(f"phase 16: the phase took {time.perf_counter() - t16:.1f} s (with phase 17a's "
           f"steps in its two-rank launch)", flush=True)
     return record, ep_step
@@ -2419,8 +2502,11 @@ def phase18a(tmp, root, kernels, card) -> dict:
     host-dense float32 RMS within 0.01 deg of JAX's anchor, every other mode
     within 0.1 deg of it and within QUALITY_SAME_MODE_BAR_DEG of JAX's same
     mode; MuPS launched once a served batch; the int8 kernel in the int8
-    modes only."""
+    modes only, as often as their batches and expert runs make."""
     from nestinet_tpu_torch.cli import synth
+    from nestinet_tpu_torch.core.config import Config
+    from nestinet_tpu_torch.models import build_model
+    from nestinet_tpu_torch.ops.gmm import GridGMM
     from nestinet_tpu_torch.scripts import run_quality
 
     with open(os.path.join(root, QUALITY_RUN, "anchor.json")) as f:
@@ -2428,6 +2514,8 @@ def phase18a(tmp, root, kernels, card) -> dict:
     data, run = os.path.join(tmp, "quality_data"), os.path.join(tmp, "quality_run")
     _quiet(synth.main, ["--root", data, *anchor["synth"]])
     shutil.copytree(os.path.join(root, QUALITY_RUN, "run"), run)
+    int8_per = int8_calls(build_model(Config.load(os.path.join(run, "config.json")),
+                                      GridGMM.load(os.path.join(run, "gmm.json"))))
     want = anchor["modes"][anchor["anchor"]]
     modes = {}
     for i, (mode, flags) in enumerate(anchor["mode_flags"].items()):
@@ -2442,6 +2530,8 @@ def phase18a(tmp, root, kernels, card) -> dict:
         batches = sum(st["n_batches"] for st in stats)
         patches = sum(st["n_patches"] for st in stats)
         serve_s = sum(st["seconds"] for st in stats)
+        routing = {k: sum(st[k] for st in stats) for k in ("expert_runs", "forced_flushes")
+                   if all(k in st for st in stats)}
         rms = {ts: v["rms"] for ts, v in got["summary"].items()}
         gaps = {ts: rms[ts] - want[ts]["rms"] for ts in want}
         same = {ts: rms[ts] - v["rms"] for ts, v in anchor["modes"][mode].items()}
@@ -2452,13 +2542,13 @@ def phase18a(tmp, root, kernels, card) -> dict:
             "pgp5": {ts: v["pgp5"] for ts, v in got["summary"].items()},
             "pgp10": {ts: v["pgp10"] for ts, v in got["summary"].items()},
             "patches": patches, "batches": batches, "patches_per_sec": patches / serve_s,
-            "seconds": secs, "launches": launches}
+            "seconds": secs, "launches": launches, **routing}
         print(f"phase 18a: run_quality {mode}: RMS " + ", ".join(
             f"{ts} {v:.4f}" for ts, v in rms.items()) + f" deg; max |gap to the anchor| "
             f"{max(abs(g) for g in gaps.values()):.5f} deg (bar {bar}), to JAX's same mode "
             f"{max(abs(g) for g in same.values()):.5f} deg (bar {same_bar}); {patches} patches in "
             f"{batches} batches, {patches / serve_s:.1f} patches/s, launches {launches}, "
-            f"{secs:.1f} s [{card}]", flush=True)
+            f"routing {routing}, {secs:.1f} s [{card}]", flush=True)
         if not max(abs(g) for g in gaps.values()) <= bar:
             fail(f"phase 18a {mode}: RMS off JAX's anchor by {gaps} (bar {bar} deg)")
         if not max(abs(g) for g in same.values()) <= same_bar:
@@ -2468,6 +2558,9 @@ def phase18a(tmp, root, kernels, card) -> dict:
                  f"batches")
         if ("int8" in mode) != (launches["int8_conv3d"] > 0):
             fail(f"phase 18a {mode}: int8 kernel launches {launches['int8_conv3d']}")
+        if "int8" in mode:
+            check_int8_launches(f"phase 18a {mode}", launches["int8_conv3d"], batches,
+                                routing["expert_runs"], int8_per)
     return modes
 
 
@@ -2567,14 +2660,15 @@ def phase18c(dev, card) -> dict:
             "blocked_diff": diffs, "ms": ms, "plain_ms": plain_ms}
 
 
-def phase18d(tmp, data, run, kernels, card) -> dict:
+def phase18d(tmp, data, run, kernels, card, int8_per) -> dict:
     """Phase 18d: the two quality scripts at full width on random weights.
     `run_quality` serves phase 7's run dir in device-sparse int8+fold, each
     of the six testsets cut to its first shape (a data dir of links to
     phase 7's files); `switching_demo` serves phase 14a's `ms_sw_n_est` run
     dir (full `SW_BACKBONE`) on phase 14's two switching shapes.  Each with
     the launch counts set to 0 before and read after: MuPS launched once a
-    batch, the int8 kernel in `run_quality`; every RMS finite."""
+    batch, the int8 kernel in `run_quality` as often as its batches and
+    expert runs make; every RMS finite."""
     import numpy as np
 
     from nestinet_tpu_torch.scripts import run_quality, switching_demo
@@ -2599,17 +2693,20 @@ def phase18d(tmp, data, run, kernels, card) -> dict:
     q_launches = _launch_counts(kernels)
     stats = got["stats"].values()
     batches, patches = sum(st["n_batches"] for st in stats), sum(st["n_patches"] for st in stats)
+    runs = sum(st["expert_runs"] for st in stats)
     rms = {ts: v["rms"] for ts, v in got["summary"].items()}
     print(f"phase 18d: run_quality at full width (phase 7's run dir, random weights, "
           f"device-sparse int8+fold, one shape a testset): {patches} patches in {batches} "
-          f"batches, {patches / sum(st['seconds'] for st in stats):.1f} patches/s, RMS "
-          + ", ".join(f"{ts} {v:.3f}" for ts, v in rms.items())
+          f"batches, {runs} expert runs, {patches / sum(st['seconds'] for st in stats):.1f} "
+          f"patches/s, RMS " + ", ".join(f"{ts} {v:.3f}" for ts, v in rms.items())
           + f" deg, launches {q_launches} [{card}]", flush=True)
     if len(rms) != 6 or not all(np.isfinite(v) for v in rms.values()):
         fail(f"phase 18d: run_quality at full width gave {rms}")
     if q_launches["tdmfv_n_est"] != batches or q_launches["int8_conv3d"] == 0:
         fail(f"phase 18d: run_quality at full width launched {q_launches} for {batches} "
              f"batches")
+    check_int8_launches("phase 18d run_quality", q_launches["int8_conv3d"], batches, runs,
+                        int8_per)
 
     sw_data = os.path.join(tmp, "switching")
     with open(os.path.join(sw_data, "testset_switching.txt")) as f:
@@ -2641,13 +2738,13 @@ def phase18d(tmp, data, run, kernels, card) -> dict:
         fail(f"phase 18d: switching_demo at full width launched {sw_launches} for "
              f"{sw_batches} batches")
     return {"run_quality": {"rms": rms, "patches": patches, "batches": batches,
-                            "launches": q_launches},
+                            "expert_runs": runs, "launches": q_launches},
             "switching_demo": {"rms_deg": sw["rms_deg"], "n_patches": sw["n_patches"],
                                "small_branch_share": sw["small_branch_share"],
                                "launches": sw_launches}}
 
 
-def phase18(tmp, data, run, dev, kernels, card) -> dict:
+def phase18(tmp, data, run, dev, kernels, card, int8_per) -> dict:
     """Phase 18: the quality bar on the committed trained run dirs (a, b),
     the learned GMM on the card (c), and the two quality scripts at full
     width (d)."""
@@ -2656,7 +2753,7 @@ def phase18(tmp, data, run, dev, kernels, card) -> dict:
     record = {"quality": phase18a(tmp, root, kernels, card),
               "switching": phase18b(tmp, root, kernels, card),
               "learned_gmm": phase18c(dev, card),
-              "full_width": phase18d(tmp, data, run, kernels, card)}
+              "full_width": phase18d(tmp, data, run, kernels, card, int8_per)}
     record["seconds"] = time.perf_counter() - t18
     print(f"phase 18: the phase took {record['seconds']:.1f} s", flush=True)
     return record
@@ -2781,6 +2878,7 @@ def main(argv=None) -> int:
         spread_manager_logits(model.to(dev), grids, queries, radii, bseed, caps)
         checkpoint.save(rd.path, model.cpu().state_dict())
         n_params = sum(v.numel() for v in model.state_dict().values())
+        int8_per = int8_calls(model)
         del model
         print(f"run dir: experts_n_est, {n_params} weights", flush=True)
 
@@ -2866,7 +2964,7 @@ def main(argv=None) -> int:
                 rd.path, dataset_name=f"pcpnet_device_{dtype}_fold{int(fold)}",
                 testset="testset.txt", data_path=data, batch_size=DEVICE_BATCH,
                 moe_inference="sparse", compute_dtype=dtype, fold_bn=fold),
-                kernels, card, int8=dtype == "int8")
+                kernels, card, int8=dtype == "int8", int8_per=int8_per)
             dtype_runs[label]["rms"] = check_outputs(
                 data, dtype_runs[label]["output_dir"], "testset", N_EXPERTS)["rms"]
         print("evaluate: RMS " + ", ".join(f"{k} {v['rms']:.4f} deg" for k, v in
@@ -2908,10 +3006,15 @@ def main(argv=None) -> int:
                   f"profiled {dev_ms:.3f} ms of device time, convolutions {100 * conv:.1f}%, "
                   f"int8 kernel {100 * int8:.1f}% [{card}]", flush=True)
         for label, c in launch_counts.items():
-            print(f"launches {label}: {c['routed_batch']} device launches per routed batch of "
-                  f"{DEVICE_BATCH} ({c['int8_kernel']} of the int8 kernel), "
-                  f"{c['per_conv']} per conv with a forwarded bound, "
-                  f"{c['per_first_conv']} for the grid's first conv", flush=True)
+            runs = dtype_runs[label]["expert_runs"] / dtype_runs[label]["n_batches"]
+            c["served_batch"] = c["manager"] + runs * c["expert_run"]
+            print(f"launches {label}: {c['routed_batch']} device launches for a batch of "
+                  f"{DEVICE_BATCH} routed on its own ({c['int8_kernel']} of the int8 kernel); "
+                  f"the manager {c['manager']}, an expert run of {DEVICE_BATCH} rows "
+                  f"{c['expert_run']}, so a batch served through the router ({runs:.3f} runs "
+                  f"a batch in phase 10) {c['served_batch']:.1f}; {c['per_conv']} per conv "
+                  f"with a forwarded bound, {c['per_first_conv']} for the grid's first conv",
+                  flush=True)
 
         # ---- 12. times ----
         k1_ms, plain_ms = {}, {}
@@ -2977,8 +3080,8 @@ def main(argv=None) -> int:
         tools = phase15b(tmp, data, rd.path, shapes, dev, kernels)
 
         # ---- 16. data parallelism: an NCCL world of one, two gloo ranks on the card ----
-        dp, ep_step = phase16(tmp, data, dev, train_cfg, run_gmm, rd.path, dev_sparse,
-                              dtype_runs["int8+fold"], kernels, card)
+        dp, ep_step = phase16(tmp, data, dev, train_cfg, run_gmm, rd.path, dev_sparse, kernels,
+                              card, int8_per)
 
         # ---- 17. expert parallelism: the 1 x 2 step (17a, run above), the CLI ----
         t17 = time.perf_counter()
@@ -2988,7 +3091,7 @@ def main(argv=None) -> int:
               f"launch", flush=True)
 
         # ---- 18. the quality bar, the quality scripts, the learned GMM ----
-        quality = phase18(tmp, data, rd.path, dev, kernels, card)
+        quality = phase18(tmp, data, rd.path, dev, kernels, card, int8_per)
         if "jax" in sys.modules:
             fail("jax was imported")
 

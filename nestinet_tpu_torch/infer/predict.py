@@ -13,13 +13,18 @@ host (kd-tree) loader, zero-pad the last partial batch to the batch size
 
 `moe_inference="sparse"` (the default, as in JAX) computes the MuPS grid
 once, runs the manager on the whole padded batch and then each real patch
-through its argmax expert only (`route_sparse`); `"dense"` runs every
-expert on every patch and keeps the argmax expert's normal.  Both give the
-same ids and, up to a sub-batch's summation order, the same normals; under
-int8 a routed expert quantizes its own sub-batch, so its normals move a
-little more.  The JAX router's FIFO slots, eviction and pipeline
-depth exist for XLA's static shapes and are not ported: here each batch is
-routed by `index_select` and `index_copy` per expert.
+through its argmax expert only, on JAX's schedule (`SparseMoeRouter`):
+each batch's grid is parked in a FIFO of W slots, the manager's
+probabilities are processed `depth` batches late, each batch's winners
+are appended to per-expert buckets, and an expert runs when its bucket
+holds a batch's worth of rows, which usually come from several batches;
+a slot's rows are flushed before it is overwritten, the rest at the end,
+and a partial run is padded with the FIFO's first row.  The runs hold the
+same rows in the same order as JAX's, so under int8, where every conv and
+linear quantizes its whole input at one scale, a patch's normal is the
+one JAX computes.  `"dense"` runs every expert on every patch and keeps
+the argmax expert's normal.  Not ported: the device-side donation, the
+asynchronous copies and the flat (8, 128)-lane layout of JAX's FIFO.
 
 A model other than the mixture of experts is served dense on its whole
 padded batch, as JAX does (`nestinet_tpu/infer/predict.py:294-330`): it
@@ -31,20 +36,23 @@ served, or the JAX trainer's msgpack checkpoint when it holds no torch one
 (`core/checkpoint.py`).
 
 `data_parallel` (JAX's signature and assert, `:296-313`) serves on that
-many ranks (`train/distributed.py::launch`): each rank extracts and serves
-whole global batches, batch i on rank i mod N (`data/loader.py`, "batches"
+many ranks (`train/distributed.py::launch`): each rank extracts whole
+global batches, batch i on rank i mod N (`data/loader.py`, "batches"
 shards), and rank 0 gathers the outputs and writes them in the batches'
 order (`RankOutputs`).  Every batch is the one a single process forms, so
-every int8 activation scale is too, and the files equal one process's
-without a collective inside the model.  JAX instead shards each batch's
-rows over its mesh, where XLA takes the int8 amax over the global batch;
-splitting rows here would need an all-reduce of the amax before each int8
-conv and linear.
+every manager's int8 activation scale is too.  Routed, every rank
+all-gathers each global batch's grid and probabilities, holds the whole
+FIFO and computes the one schedule; run k executes on rank k mod N, and
+rank 0 takes each patch's normal from the rank that ran it.  So the files
+equal one process's without a collective inside the model.  JAX instead
+shards each batch's rows over its mesh, where XLA takes the int8 amax
+over the global batch and moves the bucket rows between shards.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -131,8 +139,11 @@ MOE_INFERENCE = ("sparse", "dense")
 
 
 def route_sparse(model, grid: torch.Tensor, real: int):
-    """Argmax-only mixture of experts on a [B, r, r, r, C] grid whose first
-    `real` rows are real patches (the rest are padding).
+    """Argmax-only mixture of experts on one [B, r, r, r, C] grid whose first
+    `real` rows are real patches (the rest are padding): the one-batch
+    routing primitive.  Serving no longer goes through it: its runs hold one
+    batch's rows, where JAX's router gathers them across batches
+    (`SparseMoeRouter`), so under int8 its normals are not JAX's.
 
     The manager runs on the whole padded batch; each real patch then runs
     through exactly one expert, its argmax (first maximum on ties, as
@@ -158,6 +169,250 @@ def route_sparse(model, grid: torch.Tensor, real: int):
     return normals, ids, probs.t()
 
 
+class SparseMoeRouter:
+    """JAX's `SparseMoeRouter` (`nestinet_tpu/infer/predict.py:423-778`): the
+    same expert runs, with the same rows in the same order and the same pad
+    rows, in plain PyTorch on `device`.
+
+      * The window: W = max(2, window_slots), or max(2, 8192 // B) when
+        `window_slots` is None or 0.  The FIFO holds W padded grids of B
+        rows in the model's compute dtype (bfloat16 under int8), as JAX
+        parks them (`:793-795`).
+      * The depth: min(NESTINET_MANAGER_DEPTH or 3, W - 2) if W > 2, else
+        1 (`:524-525`).  The manager's probabilities of batch i are
+        processed once batch i + depth is committed.
+      * Batch i (`begin_batch`, `commit`): from i = W on, slot i mod W is
+        evicted first: for e = 0..E-1, the bucket's leading rows parked in
+        that slot run now (`:733-751`).  Then the grid is parked in the
+        slot and its probabilities queued; the oldest queued batch, while
+        more than `depth` are queued, is processed: argmax (the first
+        maximum), each winner's rows appended to its expert's bucket in
+        `np.unique` order, then for e = 0..E-1, while the bucket holds B
+        rows or more, exactly B run (`:753-778`).
+      * `finish`: the queue processed, then for e = 0..E-1 the buckets
+        flushed in runs of min(count, B) (`:579-588`).
+      * A run of n < B rows is padded to max(32, B // 4) rows if n is at
+        most that, else to B, with the FIFO's slot 0, row 0 as the slot
+        holds it when the run starts (`:639-654`); the pad rows go through
+        the expert, since they set its int8 scales, and their normals are
+        dropped.  The expert takes its channel slice of the gathered rows
+        (`expert_on_grid`, as `_expert_on_buf` `:839-873`).
+
+    Outputs reach `emit(normals [n, 3], ids [n], probabilities [n, E])` in
+    patch order, as NumPy arrays.
+
+    On the ranks of a data-parallel mesh (`mesh.size` > 1) every rank feeds
+    every global batch through `serve`, in the global order: each round,
+    the ranks all-gather their batches' grids and probabilities (`reals`
+    gives every global batch's real patch count), so every rank holds the
+    whole FIFO and computes the one schedule.  Rank r executes run k when
+    k mod N = r; the others mark its patches done with zero normals, and
+    `own` keeps the (patch ids, normals) of the runs this rank executed.
+    """
+
+    def __init__(self, model, batch_size: int, emit, *, device: torch.device,
+                 window_slots: int | None = None, mesh=None, reals=None):
+        self.model = model
+        self.batch_size = batch_size
+        self.emit = emit
+        self.W = max(2, window_slots) if window_slots else max(2, 8192 // batch_size)
+        depth = int(os.environ.get("NESTINET_MANAGER_DEPTH", "3"))
+        self.depth = min(depth, self.W - 2) if self.W > 2 else 1
+        res, channels = model.resolution, 20 * model.cfg.n_scales
+        self.fifo = torch.zeros((self.W * batch_size, res, res, res, channels),
+                                dtype=model.compute_dtype, device=device)
+        self.mesh = mesh
+        self.rank, self.ranks = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
+        self.reals = list(reals) if reals is not None else None
+        if self.ranks > 1 and self.reals is None:
+            raise ValueError("a router on several ranks needs every global batch's `reals`")
+        n = model.n_experts
+        self.buckets = [[] for _ in range(n)]  # segments (patch ids, FIFO rows, batch)
+        self.bucket_count = [0] * n
+        self.queue = []  # (batch, real, probabilities [E, real]) not yet processed
+        self.meta = []  # (first patch, ids [real], probabilities [real, E]), batch order
+        self.own = []
+        # the patches not yet emitted: from the oldest batch still in the FIFO on
+        self.R = (self.W + 1) * batch_size
+        self.ring = np.zeros((self.R, 3), np.float32)
+        self.ready = np.zeros(self.R, bool)
+        self.batch_i = self.n_patches = self.emit_ptr = self.round = 0
+        self.expert_runs = self.forced_flushes = self.executed = 0
+        self.gather_seconds = 0.0
+
+    # ---- JAX's driver protocol ----
+    def begin_batch(self) -> int:
+        """Evict the slot that the next batch overwrites; returns it."""
+        slot = self.batch_i % self.W
+        if self.batch_i >= self.W:
+            self._evict(slot)
+        return slot
+
+    def commit(self, real: int, probs: torch.Tensor, grid: torch.Tensor) -> None:
+        """Park a batch's padded grid [B, r, r, r, C] in its slot and queue
+        its probabilities [E, B]."""
+        slot = self.batch_i % self.W
+        b = self.batch_size
+        self.fifo[slot * b:(slot + 1) * b].copy_(grid)
+        self.queue.append((self.batch_i, real, probs[:, :real]))
+        while len(self.queue) > self.depth:
+            self._process(*self.queue.pop(0))
+        self.batch_i += 1
+
+    def finish(self) -> dict:
+        """Run what is left and emit every patch; returns the schedule's
+        counts."""
+        if self.ranks > 1:
+            while self.round < -(-len(self.reals) // self.ranks):
+                self.serve(0, torch.zeros_like(self.fifo[:self.batch_size]), torch.zeros(
+                    (self.model.n_experts, self.batch_size), device=self.fifo.device))
+        while self.queue:
+            self._process(*self.queue.pop(0))
+        for e in range(len(self.buckets)):
+            while self.bucket_count[e]:
+                self._run(e, *self._take(e, min(self.bucket_count[e], self.batch_size)))
+        self._emit()
+        if self.emit_ptr != self.n_patches:
+            raise RuntimeError(f"the router emitted {self.emit_ptr} of {self.n_patches} patches")
+        stats = {"expert_runs": self.expert_runs, "forced_flushes": self.forced_flushes,
+                 "window_slots": self.W}
+        if self.ranks > 1:
+            stats["all_gather_seconds"] = self.gather_seconds
+        return stats
+
+    def serve(self, real: int, grid: torch.Tensor, probs: torch.Tensor) -> None:
+        """This rank's next batch (`real` real rows of the padded grid, the
+        manager's probabilities [E, B]): on one rank straight through
+        `begin_batch` and `commit`; on several, every rank's batch of the
+        round, in the global order."""
+        if self.ranks == 1:
+            self.begin_batch()
+            self.commit(real, probs, grid)
+            return
+        parts = [grid.reshape(-1).view(torch.uint8),
+                 probs.to(torch.float32).contiguous().reshape(-1).view(torch.uint8)]
+        sync = torch.cuda.synchronize if grid.device.type == "cuda" else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        gathered = self.mesh.all_gather_tensor(torch.cat(parts))
+        sync()
+        self.gather_seconds += time.perf_counter() - t0
+        cut = parts[0].numel()
+        for r, flat in enumerate(gathered):
+            i = self.round * self.ranks + r
+            if i < len(self.reals):
+                self.begin_batch()
+                self.commit(self.reals[i], flat[cut:].view(torch.float32).view(probs.shape),
+                            flat[:cut].view(grid.dtype).view(grid.shape))
+        self.round += 1
+
+    # ---- internals ----
+    def _process(self, b: int, real: int, probs: torch.Tensor) -> None:
+        probs = probs.cpu().numpy()  # [E, real]
+        ids = np.argmax(probs, axis=0)
+        base = self.n_patches
+        idxs = base + np.arange(real, dtype=np.int64)
+        flats = (b % self.W) * self.batch_size + np.arange(real, dtype=np.int64)
+        self.meta.append((base, ids, np.ascontiguousarray(probs.T)))
+        for e in np.unique(ids):
+            m = ids == e
+            self.buckets[int(e)].append((idxs[m], flats[m], b))
+            self.bucket_count[int(e)] += int(m.sum())
+        self.n_patches += real
+        for e in range(len(self.buckets)):
+            while self.bucket_count[e] >= self.batch_size:
+                self._run(e, *self._take(e, self.batch_size))
+        self._emit()
+
+    def _take(self, e: int, n: int):
+        """The first n rows of bucket e: (patch ids [n], FIFO rows [n])."""
+        segs = self.buckets[e]
+        parts_i, parts_f, got = [], [], 0
+        while got < n:
+            i, f, b = segs[0]
+            need = n - got
+            if i.shape[0] <= need:
+                segs.pop(0)
+            else:
+                segs[0] = (i[need:], f[need:], b)
+                i, f = i[:need], f[:need]
+            parts_i.append(i)
+            parts_f.append(f)
+            got += i.shape[0]
+        self.bucket_count[e] -= n
+        return np.concatenate(parts_i), np.concatenate(parts_f)
+
+    def _evict(self, slot: int) -> None:
+        """Run every bucket's leading rows parked in `slot`, experts in order."""
+        for e, segs in enumerate(self.buckets):
+            take_i, take_f = [], []
+            while segs and segs[0][2] % self.W == slot:
+                i, f, _ = segs.pop(0)
+                take_i.append(i)
+                take_f.append(f)
+            if take_i:
+                idxs, flats = np.concatenate(take_i), np.concatenate(take_f)
+                self.bucket_count[e] -= idxs.shape[0]
+                self._run(e, idxs, flats)
+
+    def _run(self, e: int, idxs: np.ndarray, flats: np.ndarray) -> None:
+        """One expert run over the given FIFO rows, padded as JAX pads."""
+        k = self.expert_runs
+        self.expert_runs += 1
+        n = idxs.shape[0]
+        if n < self.batch_size:
+            self.forced_flushes += 1
+            small = max(32, self.batch_size // 4)
+            target = small if n <= small else self.batch_size
+            flats = np.concatenate([flats, np.zeros(target - n, np.int64)])
+        if k % self.ranks != self.rank:
+            self._complete(idxs, None)
+            return
+        index = torch.from_numpy(flats).to(self.fifo.device)
+        normals = self.model.expert_on_grid(e, self.fifo.index_select(0, index))[:n]
+        normals = normals.cpu().numpy()
+        self.executed += 1
+        self._complete(idxs, normals)
+        if self.ranks > 1:
+            self.own.append((idxs, normals))
+
+    def _complete(self, idxs: np.ndarray, normals) -> None:
+        if int(idxs.max()) - self.emit_ptr >= self.R:
+            raise RuntimeError("the router's ring of normals lapped its unread tail")
+        slots = idxs % self.R
+        self.ring[slots] = 0.0 if normals is None else normals
+        self.ready[slots] = True
+
+    def _emit(self) -> None:
+        """Emit the completed prefix of the patches, in patch order."""
+        start, parts = self.emit_ptr, []
+        while self.emit_ptr < self.n_patches:
+            s = self.emit_ptr % self.R
+            span = min(self.R - s, self.n_patches - self.emit_ptr)
+            flags = self.ready[s:s + span]
+            k = span if flags.all() else int(np.argmin(flags))
+            if k == 0:
+                break
+            parts.append(self.ring[s:s + k].copy())
+            self.ready[s:s + k] = False
+            self.emit_ptr += k
+        if not parts:
+            return
+        ids, probs = [], []
+        while self.meta:
+            base, b_ids, b_probs = self.meta[0]
+            lo, hi = max(base, start), min(base + b_ids.shape[0], self.emit_ptr)
+            if hi <= lo:
+                break
+            ids.append(b_ids[lo - base:hi - base])
+            probs.append(b_probs[lo - base:hi - base])
+            if hi < base + b_ids.shape[0]:
+                break
+            self.meta.pop(0)
+        self.emit(np.concatenate(parts), np.concatenate(ids).astype(np.int64),
+                  np.concatenate(probs))
+
+
 def is_moe(model) -> bool:
     return isinstance(model, ExpertsNormEst)
 
@@ -171,34 +426,36 @@ def route_rows(model, cfg) -> np.ndarray:
     return np.zeros(2 if isinstance(model, SwitchingNormEst) else 0, np.int64)
 
 
-def serve_grid(model, grid: torch.Tensor, real: int, moe_inference: str, rows: np.ndarray):
+def serve_grid(model, grid: torch.Tensor, real: int, rows: np.ndarray):
     """(normals [real, 3], expert ids [real], probabilities [real, E]) of
-    one padded batch's grid, routed (`route_sparse`) or dense; a model
-    other than the mixture of experts runs dense and gives (normals, None,
-    None), the switching model counting its patches per branch into
-    `rows` (`route_rows`)."""
+    one padded batch's grid served dense; a model other than the mixture of
+    experts gives (normals, None, None), the switching model counting its
+    patches per branch into `rows` (`route_rows`).  Routed serving goes
+    through `SparseMoeRouter`."""
     if not is_moe(model):
         outputs = model.forward_grid(grid)
         if isinstance(model, SwitchingNormEst):
             small = int((outputs["noise_pred"][:real] < NOISE_SWITCH_THRESHOLD).sum())
             rows += (small, real - small)
         return model.predict_normals(outputs)[:real], None, None
-    if moe_inference == "sparse":
-        return route_sparse(model, grid, real)
     outputs = model.forward_grid(grid)
     ids, probs = model.predict_experts(outputs)
     return model.predict_normals(outputs)[:real], ids[:real], probs[:real]
 
 
+def _host(t) -> np.ndarray | None:
+    return t if t is None or isinstance(t, np.ndarray) else t.cpu().numpy()
+
+
 def append_outputs(writer, rows: np.ndarray, normals, experts, probs) -> None:
-    """One batch's outputs to the writer; the mixture of experts' ids are
-    counted into `rows`."""
+    """Outputs in patch order (tensors or NumPy arrays) to the writer; the
+    mixture of experts' ids are counted into `rows`."""
     if experts is None:
-        writer.append(normals.cpu().numpy())
+        writer.append(_host(normals))
         return
-    experts = experts.cpu().numpy()
+    experts = _host(experts)
     rows += np.bincount(experts, minlength=rows.shape[0])
-    writer.append(normals.cpu().numpy(), experts, probs.cpu().numpy())
+    writer.append(_host(normals), experts, _host(probs))
 
 
 def serving_stats(model, cfg, rows: np.ndarray) -> dict:
@@ -219,42 +476,66 @@ def kernel_launches() -> dict:
 
 
 class RankOutputs:
-    """Where a serving call's batches go.  One process: straight to the
-    writer (`append_outputs`).  A data-parallel rank keeps the outputs of
-    the global batches it serves (batch i on rank i mod N) until `finish`,
-    where rank 0 gathers every rank's and writes them in the global order.
-    `make_writer` builds the writer, on rank 0 only."""
+    """Where a serving call's outputs go.  One process: straight to the
+    writer (`append_outputs`).  A data-parallel rank served dense keeps the
+    outputs of the global batches it serves (batch i on rank i mod N) until
+    `finish`, where rank 0 gathers every rank's and writes them in the
+    global order.  Served routed (`routed`), every rank's router emits
+    every patch in order, rank 0 keeps them, and at `finish` it takes each
+    patch's normal from the rank that ran its expert (`SparseMoeRouter.own`).
+    `make_writer` builds the writer, on rank 0 only; `served` counts a batch
+    this rank computed."""
 
-    def __init__(self, mesh, make_writer, rows: np.ndarray):
+    def __init__(self, mesh, make_writer, rows: np.ndarray, routed: bool = False):
         self.mesh = mesh
         self.rows = rows
+        self.routed = routed
         self.writer = make_writer() if mesh.is_main else None
         self.parts: list = []
         self.n_patches = self.n_batches = 0
         self._launches = kernel_launches()
 
-    def add(self, normals, experts, probs) -> None:
-        self.n_patches += normals.shape[0]
+    def served(self, real: int) -> None:
+        self.n_patches += real
         self.n_batches += 1
+
+    def add(self, normals, experts, probs) -> None:
         if self.mesh.size == 1:
             append_outputs(self.writer, self.rows, normals, experts, probs)
             return
-        out = tuple(None if t is None else t.cpu().numpy() for t in (normals, experts, probs))
+        if self.routed and not self.mesh.is_main:
+            return
+        out = tuple(map(_host, (normals, experts, probs)))
         if out[1] is not None:
             self.rows += np.bincount(out[1], minlength=self.rows.shape[0])
         self.parts.append(out)
 
-    def finish(self) -> dict | None:
+    def finish(self, router: SparseMoeRouter | None = None) -> dict | None:
         """Rank 0: writes the gathered outputs and returns the call's counts
         (`n_patches`, `n_batches`, the summed `rows`, and `per_rank`: each
-        rank's patches, batches and kernel launches); None on the others."""
+        rank's patches, batches, kernel launches and, routed, the expert runs
+        it executed); None on the others."""
         launches = {k: v - self._launches[k] for k, v in kernel_launches().items()}
         mine = {"n_patches": self.n_patches, "n_batches": self.n_batches,
                 "launches": launches}
-        gathered = self.mesh.gather_to_main((self.parts, self.rows, mine))
+        if router is not None:
+            mine["expert_runs"] = router.executed
+        own = router.own if router is not None else None
+        gathered = self.mesh.gather_to_main((self.parts, self.rows, mine, own))
         if not self.mesh.is_main:
             return None
-        if self.mesh.size > 1:
+        if self.mesh.size > 1 and self.routed:
+            normals, experts, probs = (np.concatenate([p[i] for p in self.parts])
+                                       for i in range(3))
+            filled = np.zeros(normals.shape[0], bool)
+            for g in gathered:
+                for idxs, n in g[3]:
+                    normals[idxs] = n
+                    filled[idxs] = True
+            if not filled.all():
+                raise RuntimeError(f"no rank ran the experts of {int((~filled).sum())} patches")
+            self.writer.append(normals, experts, probs)
+        elif self.mesh.size > 1:
             parts = [g[0] for g in gathered]
             for i in range(sum(map(len, parts))):
                 self.writer.append(*parts[i % self.mesh.size][i // self.mesh.size])
@@ -264,6 +545,30 @@ class RankOutputs:
         return {"n_patches": sum(r["n_patches"] for r in per_rank),
                 "n_batches": sum(r["n_batches"] for r in per_rank),
                 "rows": sum(g[1] for g in gathered), "per_rank": per_rank}
+
+
+def is_routed(model, moe_inference: str) -> bool:
+    return is_moe(model) and moe_inference == "sparse"
+
+
+def make_router(model, moe_inference: str, outputs: RankOutputs, batch_size: int, dev,
+                window_slots: int | None, reals: list) -> SparseMoeRouter | None:
+    """The router of a routed mixture-of-experts call, else None; `reals`:
+    every global batch's real patch count."""
+    if not is_routed(model, moe_inference):
+        return None
+    return SparseMoeRouter(model, batch_size, outputs.add, device=dev,
+                           window_slots=window_slots, mesh=outputs.mesh, reals=reals)
+
+
+def serve_batch(model, router, outputs: RankOutputs, grid: torch.Tensor, real: int) -> None:
+    """One padded batch's grid this rank computed: routed, dense, or the
+    other models' forward."""
+    outputs.served(real)
+    if router is None:
+        outputs.add(*serve_grid(model, grid, real, outputs.rows))
+    else:
+        router.serve(real, grid, model.manager_probs(grid))
 
 
 def check_moe_inference(moe_inference: str) -> None:
@@ -283,6 +588,7 @@ def predict_shapes(
     output_dir: str | None = None,
     moe_inference: str = "sparse",
     compute_dtype: str | None = None,
+    sparse_window_slots: int | None = None,
     fold_bn: bool | None = None,
     data_parallel: int = 1,
     device: str | torch.device = "cuda",
@@ -290,17 +596,20 @@ def predict_shapes(
 ) -> dict:
     """Inference with host patch extraction for every shape in `testset`
     (or each shape's `.pidx` subset with `sparse_patches`); returns stats,
-    with the patches each expert or branch served (`serving_stats`) and
-    each rank's patches and kernel launches (`per_rank`).  `data_parallel`
-    > 1 serves on that many ranks (`backend` as in `distributed.launch`),
-    whole batches each, and returns rank 0's stats."""
+    with the patches each expert or branch served (`serving_stats`), each
+    rank's patches and kernel launches (`per_rank`) and, routed, the
+    router's `expert_runs`, `forced_flushes` and `window_slots`
+    (`sparse_window_slots` as JAX's).  `data_parallel` > 1 serves on that
+    many ranks (`backend` as in `distributed.launch`), whole batches each,
+    and returns rank 0's stats."""
     check_moe_inference(moe_inference)
     if data_parallel > 1:
         assert batch_size % data_parallel == 0, "batch_size must divide by data_parallel"
     kwargs = dict(dataset_name=dataset_name, testset=testset, data_path=data_path,
                   batch_size=batch_size, sparse_patches=sparse_patches,
                   loader_workers=loader_workers, output_dir=output_dir,
-                  moe_inference=moe_inference, compute_dtype=compute_dtype, fold_bn=fold_bn,
+                  moe_inference=moe_inference, compute_dtype=compute_dtype,
+                  sparse_window_slots=sparse_window_slots, fold_bn=fold_bn,
                   data_parallel=data_parallel, device=device)
     return distributed.launch(_predict_shapes, data_parallel, (run_dir,), kwargs,
                               device=device, backend=backend)
@@ -308,7 +617,7 @@ def predict_shapes(
 
 def _predict_shapes(run_dir: str, *, dataset_name, testset, data_path, batch_size,
                     sparse_patches, loader_workers, output_dir, moe_inference, compute_dtype,
-                    fold_bn, data_parallel, device) -> dict | None:
+                    sparse_window_slots, fold_bn, data_parallel, device) -> dict | None:
     """`predict_shapes` in this process: one rank of `data_parallel`."""
     mesh = make_mesh(data_parallel)
     dev = resolve_device(device)
@@ -334,7 +643,10 @@ def _predict_shapes(run_dir: str, *, dataset_name, testset, data_path, batch_siz
     outputs = RankOutputs(mesh, lambda: ShapeScatterWriter(
         out_dir, dataset.shape_names, dataset.shape_patch_count,
         n_experts=cfg.n_experts if is_moe(model) else None,
-    ), route_rows(model, cfg))
+    ), route_rows(model, cfg), routed=is_routed(model, moe_inference))
+    total = sum(dataset.shape_patch_count)  # the loader pads the stream's last batch
+    router = make_router(model, moe_inference, outputs, batch_size, dev, sparse_window_slots,
+                         [min(batch_size, total - s) for s in range(0, total, batch_size)])
 
     loader_wait = 0.0
     t0 = time.perf_counter()
@@ -350,13 +662,13 @@ def _predict_shapes(run_dir: str, *, dataset_name, testset, data_path, batch_siz
             batch = pad_batch(batch, batch_size)
             points = torch.from_numpy(batch["points"]).to(dev)
             n_eff = torch.from_numpy(batch["n_eff"].astype(np.int32)).to(dev)
-            grid = model.mups_grid(points, n_eff)
-            outputs.add(*serve_grid(model, grid, real, moe_inference, outputs.rows))
-    counts = outputs.finish()
+            serve_batch(model, router, outputs, model.mups_grid(points, n_eff), real)
+        routing = router.finish() if router is not None else {}
+    counts = outputs.finish(router)
     elapsed = time.perf_counter() - t0
     if counts is None:
         return None
-    return serving_stats(model, cfg, counts.pop("rows")) | counts | {
+    return serving_stats(model, cfg, counts.pop("rows")) | counts | routing | {
         "seconds": elapsed,
         "loader_wait_seconds": loader_wait,
         "patches_per_sec": counts["n_patches"] / elapsed if elapsed > 0 else float("inf"),

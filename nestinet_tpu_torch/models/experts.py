@@ -9,9 +9,9 @@ Counterpart of `nestinet_tpu/models/experts.py`:
     3-scale expert) (`:66-73`, `:50`);
   * dense inference (`forward_grid`): every expert runs on every patch,
     the argmax expert's normal is kept (first maximum on ties, as
-    jnp.argmax); routed inference (`infer/predict.py::route_sparse`) runs
-    `manager_probs` and then each patch's argmax expert only, through the
-    same two grid-level methods;
+    jnp.argmax); routed inference (`infer/predict.py::SparseMoeRouter`)
+    runs `manager_probs` and then each patch's argmax expert only, through
+    the same two grid-level methods;
   * training (`forward(..., training=True, bn_momentum=m)`) runs every
     expert on every patch, because the loss needs all of them; `loss`
     wraps `moe_loss` with the config's loss and expert loss types
@@ -19,9 +19,9 @@ Counterpart of `nestinet_tpu/models/experts.py`:
   * in every compute dtype the grid is cast once (`mups_grid`), the
     manager's softmax runs in float32 (`:92`) and the experts return
     float32 (`:112`).  Under int8 the per-tensor activation scales depend
-    on which patches share a batch, so a routed expert's sub-batch gives
-    slightly other numbers than the dense batch (JAX's FIFO windows are
-    other batches again).
+    on which patches share a call, so a routed expert run gives slightly
+    other numbers than the dense batch; the router forms JAX's runs, so
+    they are JAX's numbers.
 
 The reference stacks the experts of one scale count and vmaps them; here
 they are a `ModuleList` in reference expert order, which computes the same

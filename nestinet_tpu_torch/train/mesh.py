@@ -21,7 +21,8 @@ explicit:
     replicated parameter's over the world;
   * `Mesh.gather_experts` gathers the expert shards' outputs over the
     expert group, its backward keeping this rank's slice;
-  * gathers and a broadcast of Python objects.
+  * gathers and a broadcast of Python objects, and an all-gather of
+    tensors (routed serving's grids, `infer/predict.py::SparseMoeRouter`).
 
 `held_experts` is `moe_param_shardings`' rule: a group of G experts with
 G % ep == 0 is split into ep contiguous blocks of G / ep and block e goes
@@ -183,6 +184,15 @@ class Mesh:
             return [obj]
         out = [None] * self.size
         dist.all_gather_object(out, obj, group=self.group)
+        return out
+
+    def all_gather_tensor(self, tensor: torch.Tensor) -> list:
+        """[every data rank's `tensor`] on every rank, in data-rank order;
+        every rank's has the same shape and dtype."""
+        if not self.parallel:
+            return [tensor]
+        out = [torch.empty_like(tensor) for _ in range(self.size)]
+        dist.all_gather(out, tensor.contiguous(), group=self.group)
         return out
 
     def broadcast(self, obj):

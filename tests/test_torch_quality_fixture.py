@@ -102,18 +102,21 @@ MODES = {  # run_quality's flags, both packages
 }
 F32_BAR_DEG = 0.01  # PERF.md §2: host-dense float32 against the anchor, per testset
 BAR_DEG = 0.1  # the North star's bar: every other mode against the anchor
-# each mode against JAX's same mode, per testset (PERF.md §2): set from the
-# port's readings, the same on the CPU and on an H100 (bfloat16 <= 0.0015,
-# int8 0.048, int8 folded 0.041); int8 sits higher because its routed
-# experts quantize each sub-batch at its own scale, and the port's sub-batches
-# are not JAX's
+# each mode against JAX's same mode, per testset (PERF.md §2), 0.01 in every
+# mode; the port's readings on the CPU: bfloat16 <= 0.0015, int8 0.0065, int8
+# folded 0.0029.  The routed experts run on JAX's schedule
+# (`infer/predict.py::SparseMoeRouter`), so under int8 each run quantizes the
+# rows JAX's does; what is left is JAX's jitted rounding (XLA keeps float32
+# inside fused bfloat16 chains), which moves a few manager ids and with them
+# whole runs, where the port rounds as eager JAX does
+# (`tests/test_torch_router.py`)
 SAME_MODE_BAR_DEG = {
     ANCHOR: F32_BAR_DEG,
     "device-sparse f32": F32_BAR_DEG,
     "device-sparse bf16": 0.01,
     "device-sparse bf16+fold": 0.01,
-    "device-sparse int8": 0.06,
-    "device-sparse int8+fold": 0.06,
+    "device-sparse int8": 0.01,
+    "device-sparse int8+fold": 0.01,
 }
 SERVE_BATCH = "256"
 JAX_TIMEOUT = 600

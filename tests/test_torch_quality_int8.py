@@ -1,7 +1,7 @@
 """The committed trained MoE run dir (`tests/test_torch_quality_fixture.py`)
 served by the port on the CPU with device extraction, routed, in int8 and
 int8 with BatchNorm folded: each testset's RMS within `BAR_DEG` (0.1 deg)
-of JAX's host-dense float32 anchor and within `SAME_MODE_BAR_DEG` (0.06
+of JAX's host-dense float32 anchor and within `SAME_MODE_BAR_DEG` (0.01
 deg) of JAX's same mode, as `chip_smoke.py` phase 18a holds the
 card (`check_anchor_bar`).  The modes share their plain MuPS statistics
 (`statistics_reused`).

@@ -262,8 +262,10 @@ def test_predict_scan_equals_jax(scanned):
     assert got["points"].shape == (n, 3) and got["n_patches"] == want["n_patches"] == n
     np.testing.assert_array_equal(got["points"], want["points"])
     assert got["device"] == "cpu" and got["compute_dtype"] == "float32"
-    # every stats key of JAX's but its router's FIFO counters (not ported)
-    assert set(want) - {"window_slots", "forced_flushes"} <= set(got)
+    # every stats key of JAX's, its router's FIFO counters equal
+    assert set(want) <= set(got)
+    assert (got["window_slots"], got["forced_flushes"]) == (want["window_slots"],
+                                                            want["forced_flushes"])
     assert set(got["stage_seconds"]) == {"depth_to_xyz", "staging", "serving", "projection"}
     img = got["normal_image"]
     assert img.shape == (H, W, 3)
