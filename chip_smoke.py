@@ -201,6 +201,14 @@ and prints no result):
      points, and both MuPS kernels run on its unequal weights and
      anisotropic sigmas against the plain version at atol 1e-5, the
      blocked one identical to kernel 1.
+ 19. drawing and HDF5 without matplotlib, PIL or h5py: (a)
+     `cli.evaluate --export_visualizations 1 --expert_statistics 1` on
+     18a's device-sparse float32 results of `testset`: exactly JAX's file
+     set, each PNG decoded by `viz/png.py` to its header's size with
+     something drawn; (b) the committed ModelNet HDF5 fixture read through
+     `data/modelnet.py` equal to its `expected.npz`; it prints whether the
+     three libraries are importable, the files, bytes and seconds, and
+     fails past 60 s.
 
 Before phase 16 the whole script ran in about 905 s on an H100 (phases
 1-12 about 300 s, phase 14 about 195 s, phase 15 about 250 s, of its
@@ -221,7 +229,8 @@ was cut for it: 13c's resumed epoch trains one step (4 of the 18 shapes)
 where it took four, and 16b's `cli.test --data_parallel 2` serves two
 shapes in float32 and one in int8+fold where it served six in each.
 Phase 18 adds about 80 s (81 s on an H100; 52 s before 18d, the quality
-drivers at full width) and cuts nothing.
+drivers at full width) and cuts nothing.  Phase 19 is held under 60 s and cuts
+nothing.
 
 Each serving path and the kernels' entry point run with the launch counts
 set to 0 just before and read just after; a kernel of the path that was
@@ -2759,6 +2768,106 @@ def phase18(tmp, data, run, dev, kernels, card, int8_per) -> dict:
     return record
 
 
+# ---------------------------------------------------------------- phase 19
+
+MODELNET_FIXTURE = os.path.join("nestinet_tpu_torch", "testdata", "modelnet_h5")
+EXPORT_TESTSET = "testset"  # phase 19a: the list of phase 18a's results it exports
+PHASE19_BUDGET_S = 60.0
+
+
+def export_files(lists: dict) -> list:
+    """The files `cli.evaluate --export_visualizations 1 --expert_statistics
+    1` writes into a results dir holding `.experts` files, for {list name:
+    its shapes}: JAX's set (tests/test_torch_cli_tools.py holds this rule
+    against the files JAX's CLI writes)."""
+    stats = "images/expert_statistics"
+    files = {f"{stats}/avg_error_all.png", f"{stats}/point_count_all.png"}
+    for name, shapes in lists.items():
+        files |= {f"summary/{name}_evaluation_results.txt",
+                  f"{stats}/{name}_expert_statistics.json"}
+        for shape in shapes:
+            files |= {f"images/phi_theta/{shape}_phi_theta_domain.png",
+                      f"{stats}/avg_error/{shape}.png", f"{stats}/point_count/{shape}.png"}
+            files |= {f"images/{shape}_{tag}.png"
+                      for tag in ("normals_gt", "normals_pred", "error", "experts")}
+    return sorted(files)
+
+
+def _tree(root) -> set:
+    return {os.path.relpath(os.path.join(d, n), root).replace(os.sep, "/")
+            for d, _, names in os.walk(root) for n in names}
+
+
+def phase19(tmp, card) -> dict:
+    """Phase 19: what the card's machine draws and reads without
+    matplotlib, PIL or h5py.  (a) `cli.evaluate --export_visualizations 1
+    --expert_statistics 1` on phase 18a's device-sparse float32 results of
+    one test list: exactly JAX's file set, every PNG decoding
+    (`viz/png.py::read_png`) to its header's size with something drawn;
+    (b) the committed ModelNet HDF5 fixture read through
+    `data/modelnet.py` equal to its `expected.npz`, dtypes included."""
+    import importlib.util
+
+    import numpy as np
+
+    from nestinet_tpu_torch.data import modelnet
+    from nestinet_tpu_torch.viz.png import read_header, read_png
+
+    t19 = time.perf_counter()
+    data = os.path.join(tmp, "quality_data")
+    served = os.path.join(tmp, "quality_run", "q1_results")  # 18a's device-sparse f32
+    with open(os.path.join(data, EXPORT_TESTSET + ".txt")) as f:
+        shapes = [x.strip() for x in f if x.strip()]
+    results = os.path.join(tmp, "phase19_results")
+    os.makedirs(results)
+    for shape in shapes:
+        for ext in (".normals", ".experts"):
+            shutil.copy(os.path.join(served, shape + ext), results)
+    inputs = _tree(results)
+    cli_s = run_module("nestinet_tpu_torch.cli.evaluate", "--normal_results_path", results,
+                       "--data_path", data, "--dataset_list", EXPORT_TESTSET,
+                       "--export_visualizations", "1", "--expert_statistics", "1",
+                       "--n_experts", str(N_EXPERTS))
+    written = sorted(_tree(results) - inputs)
+    want = export_files({EXPORT_TESTSET: shapes})
+    if written != want:
+        fail(f"phase 19a: cli.evaluate wrote {sorted(set(written) ^ set(want))} beyond or "
+             f"short of JAX's {len(want)} files")
+    nbytes = sum(os.path.getsize(os.path.join(results, f)) for f in written)
+    pngs = [f for f in written if f.endswith(".png")]
+    for f in pngs:
+        path = os.path.join(results, f)
+        img = read_png(path)
+        w, h = read_header(path)[:2]
+        if img.shape != (h, w, 4) or not (img[..., :3] != 255).any():
+            fail(f"phase 19a: {f} decodes to {img.shape} (header {w} x {h}) or is blank")
+    t19b = time.perf_counter()
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), MODELNET_FIXTURE)
+    train, seg = modelnet.get_data_files(os.path.join(fixture, "files.txt"))
+    got = {"train": modelnet.load_h5_with_normals(train), "seg": modelnet.load_h5_with_seg(seg)}
+    with np.load(os.path.join(fixture, "expected.npz")) as z:
+        want_h5 = {"train": (z["train_data"], z["train_label"], z["train_normal"]),
+                   "seg": (z["seg_data"], z["seg_label"], z["seg_pid"])}
+        for key, arrays in want_h5.items():
+            for a, b in zip(got[key], arrays, strict=True):
+                if a.dtype != b.dtype or not np.array_equal(a, b):
+                    fail(f"phase 19b: {key} read as {a.dtype} {a.shape}, not {b.dtype} {b.shape}"
+                         " equal to expected.npz")
+    h5_s = time.perf_counter() - t19b
+    libs = {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "PIL", "h5py")}
+    secs = time.perf_counter() - t19
+    print(f"phase 19: importable {libs}; 19a cli.evaluate --export_visualizations 1 "
+          f"--expert_statistics 1 on {EXPORT_TESTSET} ({len(shapes)} shapes of 18a's "
+          f"device-sparse f32 results): {len(written)} files ({len(pngs)} PNG), {nbytes} bytes, "
+          f"JAX's file set, every PNG decoded, {cli_s:.1f} s; 19b the ModelNet HDF5 fixture "
+          f"equal to expected.npz, {h5_s:.2f} s; the phase took {secs:.1f} s [{card}]",
+          flush=True)
+    if secs > PHASE19_BUDGET_S:
+        fail(f"phase 19 took {secs:.1f} s, over its {PHASE19_BUDGET_S} s")
+    return {"importable": libs, "files": len(written), "pngs": len(pngs), "bytes": nbytes,
+            "cli_seconds": cli_s, "h5_seconds": h5_s, "seconds": secs}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="GPU smoke test of the PyTorch port")
     parser.add_argument("--record", default=None,
@@ -3092,6 +3201,9 @@ def main(argv=None) -> int:
 
         # ---- 18. the quality bar, the quality scripts, the learned GMM ----
         quality = phase18(tmp, data, rd.path, dev, kernels, card, int8_per)
+
+        # ---- 19. drawing and HDF5 without matplotlib, PIL or h5py ----
+        drawn = phase19(tmp, card)
         if "jax" in sys.modules:
             fail("jax was imported")
 
@@ -3113,7 +3225,7 @@ def main(argv=None) -> int:
         "batch_normals_max_abs_err": nerr,
         "ablations": ablations, "jax_run_dir_on_card": jax_fixture,
         "scan": scan, "cli_tools": tools, "data_parallel": dp, "expert_parallel": ep,
-        "quality": quality,
+        "quality": quality, "drawing_and_hdf5": drawn,
     })
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)

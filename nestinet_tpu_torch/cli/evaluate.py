@@ -1,12 +1,11 @@
 """Evaluation CLI of the PyTorch port (counterpart of
 `nestinet_tpu/cli/evaluate.py`, the same flags; parity:
-`utils/evaluate.py:20-29`).  `--expert_statistics 1` also writes the
-per-expert error and usage summary
-(`images/expert_statistics/<set>_expert_statistics.json`).
-`--export_visualizations 1` raises NotImplementedError: its plots need
-matplotlib and the JAX package's `viz/` renders, not ported (ROADMAP
-queue 1, item 4, the matplotlib renders; `nestinet_tpu_torch/viz/` holds
-the NumPy helpers they are drawn from).
+`utils/evaluate.py:20-29`).  `--export_visualizations 1` writes the
+per-shape (phi, theta) plots and cloud renders under `images/`;
+`--expert_statistics 1` also writes the per-expert error and usage summary
+(`images/expert_statistics/<set>_expert_statistics.json`) and its bar
+charts.  The figures are drawn by the port's `viz/` on its NumPy canvas
+(no matplotlib) and written as PNG.
 
 Example:
     python -m nestinet_tpu_torch.cli.evaluate \\
@@ -33,8 +32,8 @@ def main(argv=None):
     p.add_argument("--sparse_patches", type=int, default=1)
     p.add_argument("--dataset_list", type=str, nargs="+", default=["testset"])
     p.add_argument("--export_visualizations", type=int, default=0,
-                   help="per-shape (phi,theta) plots + cloud renders (reference "
-                        "EXPORT branch, utils/evaluate.py:161-185): not ported, raises")
+                   help="write per-shape (phi,theta) plots + cloud renders "
+                        "(reference EXPORT branch, utils/evaluate.py:161-185)")
     p.add_argument("--n_experts", type=int, default=7)
     p.add_argument("--expert_statistics", type=int, default=0,
                    help="also aggregate per-expert error/usage statistics "
@@ -53,7 +52,7 @@ def main(argv=None):
         for d in args.dataset_list:
             compute_expert_statistics(
                 args.data_path, args.normal_results_path, d,
-                n_experts=args.n_experts, export_plots=False,
+                n_experts=args.n_experts,
             )
 
 

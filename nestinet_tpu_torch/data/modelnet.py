@@ -1,8 +1,9 @@
 """ModelNet40-style HDF5 point-cloud loaders.
 
 A copy of `nestinet_tpu/data/modelnet.py`, so that the port imports nothing
-of the JAX package.  The loaders read HDF5 through h5py, imported when
-they are called; without it they raise ImportError.  The rest is numpy.
+of the JAX package.  The loaders read HDF5 with the port's own reader
+(`data/h5.py`, NumPy and zlib), never through h5py, so that one code path
+runs wherever the port does.  The rest is numpy.
 
 Capability parity with the legacy classification loaders the reference
 carried in `utils/provider.py:206-315` (shuffle, per-file h5 IO, list
@@ -17,6 +18,8 @@ import os
 
 import numpy as np
 
+from . import h5
+
 
 def shuffle_data(data: np.ndarray, labels: np.ndarray, seed: int | None = None):
     """Shuffle data and labels together; returns (data, labels, idx)
@@ -26,20 +29,9 @@ def shuffle_data(data: np.ndarray, labels: np.ndarray, seed: int | None = None):
     return data[idx, ...], labels[idx], idx
 
 
-def _h5py():
-    """h5py, imported at call time, or an ImportError that names it."""
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError(
-            "the ModelNet loaders read HDF5 through h5py, which is not installed "
-            "(ROADMAP.md queue 1, item 4: what waits for a library the card lacks)") from e
-    return h5py
-
-
 def load_h5(path: str):
     """(data, label) arrays from an h5 file (parity: `provider.py:286-292`)."""
-    with _h5py().File(path, "r") as f:
+    with h5.File(path, "r") as f:
         data = f["data"][:]
         label = f["label"][:]
     return data, label
@@ -47,14 +39,14 @@ def load_h5(path: str):
 
 def load_h5_with_normals(path: str):
     """(data, label, normal) — parity: `provider.py:301-309`."""
-    with _h5py().File(path, "r") as f:
+    with h5.File(path, "r") as f:
         return f["data"][:], f["label"][:], f["normal"][:]
 
 
 def load_h5_with_seg(path: str):
     """(data, label, seg) for part-segmentation h5 files
     (parity: `provider.py:294-299`)."""
-    with _h5py().File(path, "r") as f:
+    with h5.File(path, "r") as f:
         return f["data"][:], f["label"][:], f["pid"][:]
 
 

@@ -1,10 +1,8 @@
 """Evaluation harness over predicted `.normals` files.
 
 A copy of `nestinet_tpu/eval/evaluate.py`, so the port scores its own
-outputs.  Its visualization export (`export=True`) needs matplotlib and
-the JAX package's `viz/` renders, which are not ported (ROADMAP queue 1,
-item 4, the matplotlib renders):
-it raises NotImplementedError.  Parity with
+outputs; its visualization export (`export=True`) draws with the port's
+`viz/` on its NumPy canvas and writes the JAX package's files.  Parity with
 `utils/evaluate.py`: per dataset list, load GT `.xyz/.normals` +
 predicted `.normals` + `.pidx` sparse-eval indices, subset to pidx,
 compute unoriented/oriented RMS and PGP5/PGP10 per shape, and write
@@ -18,7 +16,60 @@ import os
 
 import numpy as np
 
-from .metrics import angle_errors_deg, pgp, rms_angle_deg
+from .metrics import angle_errors_deg, pgp, rms_angle_deg, unoriented_flip
+
+
+def _export_shape(
+    data_path, results_path, shape, points_idx,
+    normals_gt, normals_pred, experts, n_experts, *, sparse, footnote,
+):
+    """Per-shape visual export: (phi, theta)-domain plots + cloud
+    renders (reference `utils/evaluate.py:161-185` + the MATLAB
+    pipeline)."""
+    from ..viz.clouds import export_shape_visualizations
+    from ..viz.normals import (
+        discrete_cmap,
+        draw_line_segments,
+        draw_phi_theta_domain,
+        euclidean_to_spherical,
+    )
+
+    vis_dir = os.path.join(results_path, "images")
+    phi_dir = os.path.join(vis_dir, "phi_theta")
+    os.makedirs(phi_dir, exist_ok=True)
+
+    # Sign-align predictions with GT before mapping to the sphere
+    # (unoriented protocol; reference `evaluate.py:152-158`).
+    pred_aligned = unoriented_flip(normals_pred, normals_gt)
+    phi_gt, theta_gt = euclidean_to_spherical(normals_gt)
+    phi_pr, theta_pr = euclidean_to_spherical(pred_aligned)
+
+    ax = draw_phi_theta_domain(
+        phi_gt, theta_gt, color="k",
+        title=r"$\theta(\phi)$ " + shape,
+    )
+    draw_line_segments(phi_gt, theta_gt, phi_pr, theta_pr, ax=ax,
+                       footnote=footnote)
+    if experts is not None:
+        draw_phi_theta_domain(
+            phi_pr, theta_pr, color=experts, ax=ax,
+            cmap=discrete_cmap(n_experts), n_labels=n_experts,
+            filename=os.path.join(phi_dir, shape + "_phi_theta_domain"),
+        )
+    else:
+        draw_phi_theta_domain(
+            phi_pr, theta_pr, color="r", ax=ax,
+            filename=os.path.join(phi_dir, shape + "_phi_theta_domain"),
+        )
+
+    points = np.loadtxt(os.path.join(data_path, shape + ".xyz"))
+    if sparse:
+        points = points[points_idx]
+    ang, _ = angle_errors_deg(normals_gt, normals_pred)
+    export_shape_visualizations(
+        points, normals_gt, pred_aligned, vis_dir, shape,
+        experts=experts, n_experts=n_experts, angle_errors=ang,
+    )
 
 
 def evaluate_dataset(
@@ -31,14 +82,14 @@ def evaluate_dataset(
     n_experts: int = 7,
     log=print,
 ) -> dict:
-    """Metric pass over one dataset list.  `export=True` raises
-    NotImplementedError (see the module docstring); `n_experts` is used by
-    the export only."""
-    if export:
-        raise NotImplementedError(
-            "the visualization export (plots and renders) needs matplotlib and "
-            "the viz/ renders, not ported: ROADMAP.md queue 1, item 4 (the matplotlib renders)"
-        )
+    """Metric pass over one dataset list.
+
+    With `export=True`, additionally writes per-shape (phi, theta)-domain
+    plots (GT->prediction segments, expert-colored predictions when
+    `.experts` files exist) and normal/error/expert cloud renders —
+    parity with the reference's EXPORT branch (`utils/evaluate.py:161-185`)
+    plus the MATLAB render pipeline (`MATLAB/export_visualizations.m`).
+    """
     list_path = os.path.join(data_path, dataset + ".txt")
     if not os.path.exists(list_path):
         raise FileNotFoundError(
@@ -62,6 +113,11 @@ def evaluate_dataset(
         ).astype(np.float32)
         points_idx = np.loadtxt(os.path.join(data_path, shape + ".pidx")).astype(int)
 
+        experts = None
+        experts_path = os.path.join(results_path, shape + ".experts")
+        if os.path.exists(experts_path):
+            experts = np.loadtxt(experts_path).astype(int)
+
         sparse_normals = normals_pred.shape[0] != normals_gt.shape[0]
         if sparse_normals:
             # predictions cover only the pidx subset
@@ -69,6 +125,8 @@ def evaluate_dataset(
         elif sparse_patches:
             normals_gt = normals_gt[points_idx]
             normals_pred = normals_pred[points_idx]
+            if experts is not None:
+                experts = experts[points_idx]
         # else: dense predictions + sparse_patches=False -> evaluate every
         # point.  (The reference crashed here — it subset GT but not the
         # dense predictions, `utils/evaluate.py:127-132`; fix-not-copy.)
@@ -78,6 +136,17 @@ def evaluate_dataset(
         rms_o.append(rms_angle_deg(ang_o))
         pgp10.append(pgp(ang, 10.0))
         pgp5.append(pgp(ang, 5.0))
+
+        if export:
+            _export_shape(
+                data_path, results_path, shape, points_idx,
+                normals_gt, normals_pred, experts, n_experts,
+                sparse=sparse_patches or sparse_normals,
+                footnote=(
+                    f"RMS unoriented= {rms[-1]:.3f}, "
+                    f"PGP5= {pgp5[-1]:.3f}, PGP10= {pgp10[-1]:.3f}"
+                ),
+            )
 
     summary = {
         "dataset": dataset,

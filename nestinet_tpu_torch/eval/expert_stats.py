@@ -6,9 +6,9 @@ for each shape of a dataset list, load GT normals, predicted `.normals`
 and the winning-expert ids (`.experts`) written by the MoE inference
 path, subset to the `.pidx` evaluation points, and accumulate per-expert
 angular-error sums and usage counts (angle formula parity:
-`compute_expert_statistics.m:60-67`).  The JAX package also draws bar
-charts with matplotlib; those are not ported (ROADMAP queue 1, item 4),
-and `export_plots=True` raises NotImplementedError.
+`compute_expert_statistics.m:60-67`).  With `export_plots` (the default,
+as in the JAX package) it also draws the per-shape and aggregate bar
+charts, on the port's NumPy canvas (`viz/canvas.py`), as PNG.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import os
 
 import numpy as np
 
+from ..viz.canvas import subplots
 from .metrics import angle_errors_deg
 
 
@@ -39,6 +40,16 @@ def expert_statistics_for_shape(
     return error_sum, count
 
 
+def _bar(values, *, title, ylabel, filename, n_experts):
+    fig, ax = subplots(figsize=(6, 4))
+    ax.bar(np.arange(n_experts), values)
+    ax.set_xticks(range(n_experts))
+    ax.set_xlabel("expert")
+    ax.set_ylabel(ylabel)
+    ax.set_title(title)
+    fig.savefig(filename, dpi=150, bbox_inches="tight")
+
+
 def compute_expert_statistics(
     data_path: str,
     results_path: str,
@@ -46,23 +57,28 @@ def compute_expert_statistics(
     *,
     n_experts: int = 7,
     use_subset: bool = True,
-    export_plots: bool = False,
+    export_plots: bool = True,
     log=print,
 ) -> dict:
     """Aggregate per-expert statistics over a dataset list and write
-    `<results>/images/expert_statistics/<dataset>_expert_statistics.json`.
+    `<results>/images/expert_statistics/<dataset>_expert_statistics.json`;
+    with `export_plots`, also `avg_error/<shape>.png`,
+    `point_count/<shape>.png`, `avg_error_all.png` and
+    `point_count_all.png` there.
 
     Mirrors the MATLAB loop (`compute_expert_statistics.m`):
     sparse predictions are aligned to the `.pidx` subset; dense
     predictions are optionally subset (use_subset) for comparability.
     """
-    if export_plots:
-        raise NotImplementedError(
-            "the expert-statistics bar charts need matplotlib, not ported: "
-            "ROADMAP.md queue 1, item 4 (the matplotlib renders)"
-        )
     with open(os.path.join(data_path, dataset + ".txt")) as f:
         shapes = [s.strip() for s in f if s.strip()]
+
+    outdir = os.path.join(results_path, "images", "expert_statistics")
+    avg_dir = os.path.join(outdir, "avg_error")
+    cnt_dir = os.path.join(outdir, "point_count")
+    if export_plots:
+        os.makedirs(avg_dir, exist_ok=True)
+        os.makedirs(cnt_dir, exist_ok=True)
 
     total_err = np.zeros(n_experts)
     total_cnt = np.zeros(n_experts, dtype=np.int64)
@@ -88,6 +104,15 @@ def compute_expert_statistics(
             "avg_error_deg": avg.tolist(),
             "count": cnt.tolist(),
         }
+        if export_plots:
+            _bar(np.nan_to_num(avg), title=f"Average expert error — {shape}",
+                 ylabel="average error [deg]",
+                 filename=os.path.join(avg_dir, shape + ".png"),
+                 n_experts=n_experts)
+            _bar(cnt, title=f"Expert point count — {shape}",
+                 ylabel="points per expert",
+                 filename=os.path.join(cnt_dir, shape + ".png"),
+                 n_experts=n_experts)
 
     with np.errstate(invalid="ignore", divide="ignore"):
         total_avg = np.where(
@@ -103,7 +128,15 @@ def compute_expert_statistics(
         ).tolist(),
         "per_shape": per_shape,
     }
-    outdir = os.path.join(results_path, "images", "expert_statistics")
+    if export_plots:
+        _bar(np.nan_to_num(total_avg), title="Average expert error (all shapes)",
+             ylabel="average error [deg]",
+             filename=os.path.join(outdir, "avg_error_all.png"),
+             n_experts=n_experts)
+        _bar(total_cnt, title="Expert point count (all shapes)",
+             ylabel="points per expert",
+             filename=os.path.join(outdir, "point_count_all.png"),
+             n_experts=n_experts)
     os.makedirs(outdir, exist_ok=True)
     with open(os.path.join(outdir, f"{dataset}_expert_statistics.json"), "w") as f:
         json.dump(summary, f, indent=2)

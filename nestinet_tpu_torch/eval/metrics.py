@@ -39,3 +39,14 @@ def pgp(ang: np.ndarray, threshold_deg: float) -> float:
     """Portion of good points: fraction with error under the threshold."""
     return float(np.mean(ang < threshold_deg))
 
+
+
+def unoriented_flip(normals_pred: np.ndarray, normals_gt: np.ndarray) -> np.ndarray:
+    """Flip predictions to the gt hemisphere (`evaluate.py:156-159`)."""
+    gt = _normalize_rows(np.asarray(normals_gt, dtype=np.float64))
+    pred = _normalize_rows(np.asarray(normals_pred, dtype=np.float64))
+    nn = np.clip(np.sum(gt * pred, axis=1), -1.0, 1.0)
+    flip = np.arccos(-nn) < np.arccos(nn)
+    out = pred.copy()
+    out[flip] = -pred[flip]
+    return out

@@ -17,90 +17,27 @@ run's dtype).
 from __future__ import annotations
 
 import os
-import struct
 import tempfile
 import time
-import zlib
 
 import numpy as np
 import torch
 
 from ..core import textio
 from ..data.depth import depth_to_xyz, world_to_image
+from ..viz.png import read_png
 from .predict import predict_shapes
-
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-
-
-def _unfilter_row(kind: int, row: np.ndarray, prior: np.ndarray, bpp: int) -> np.ndarray:
-    """One scanline's bytes with its PNG filter undone (PNG spec, section
-    9); `prior` is the row above, already unfiltered (zeros for the first)."""
-    if kind == 0:  # None
-        return row
-    if kind == 1:  # Sub: a running sum per byte lane of a pixel, mod 256
-        return np.cumsum(row.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
-    if kind == 2:  # Up
-        return row + prior
-    if kind not in (3, 4):
-        raise ValueError(f"PNG: unknown filter type {kind}")
-    out, up = row.tolist(), prior.tolist()
-    for i in range(len(out)):
-        a = out[i - bpp] if i >= bpp else 0
-        b = up[i]
-        if kind == 3:  # Average
-            pred = (a + b) >> 1
-        else:  # Paeth
-            c = up[i - bpp] if i >= bpp else 0
-            p = a + b - c
-            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-        out[i] = (out[i] + pred) & 0xFF
-    return np.asarray(out, np.uint8)
 
 
 def read_png_gray(path: str) -> np.ndarray:
     """[H, W] pixel values of a non-interlaced grayscale PNG of bit depth
-    8 (uint8) or 16 (uint16, big-endian in the file); any other PNG kind
-    raises ValueError, as does a chunk whose CRC does not match."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != _PNG_SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
-    pos, header, idat = 8, None, []
-    while pos + 12 <= len(data):
-        (length,) = struct.unpack(">I", data[pos:pos + 4])
-        kind = data[pos + 4:pos + 8]
-        body = data[pos + 8:pos + 8 + length]
-        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
-        if len(body) != length or zlib.crc32(kind + body) != crc:
-            raise ValueError(f"{path}: corrupt {kind!r} chunk")
-        pos += 12 + length
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if header is None or not idat:
-        raise ValueError(f"{path}: no IHDR or IDAT chunk")
-    width, height, depth, color, _, _, interlace = header
-    if color != 0 or depth not in (8, 16) or interlace != 0:
-        raise ValueError(
-            f"{path}: only non-interlaced grayscale PNGs of 8 or 16 bits are read "
-            f"(this one: color type {color}, bit depth {depth}, interlace {interlace})"
-        )
-    bpp = depth // 8
-    stride = width * bpp
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) != height * (stride + 1):
-        raise ValueError(f"{path}: {len(raw)} bytes of image data for {height} rows")
-    rows = np.frombuffer(raw, np.uint8).reshape(height, stride + 1)
-    pixels = np.empty((height, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(height):
-        prior = pixels[y] = _unfilter_row(int(rows[y, 0]), rows[y, 1:], prior, bpp)
-    if depth == 16:
-        return pixels.view(">u2").astype(np.uint16)
+    8 (uint8) or 16 (uint16, big-endian in the file), read by
+    `viz/png.py::read_png`; any other PNG kind raises ValueError, as does a
+    chunk whose CRC does not match."""
+    pixels = read_png(path)
+    if pixels.ndim != 2:
+        raise ValueError(f"{path}: only grayscale PNGs are read as depth "
+                         f"(this one has {pixels.shape[2]} channels)")
     return pixels
 
 

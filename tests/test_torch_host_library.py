@@ -185,6 +185,26 @@ def test_modelnet_loads_alike(tmp_path):
 
 
 def test_modelnet_without_h5py_names_it(tmp_path):
+    """Once a test that the loaders raised ImportError naming h5py: they
+    now read HDF5 without it (`data/h5.py`) and equal JAX's loaders, which
+    read through h5py (the name is kept from then)."""
+    import h5py
+
+    rng = np.random.RandomState(12)
+    path = str(tmp_path / "ply_data_test0.h5")
+    with h5py.File(path, "w") as f:  # PointNet's save_h5 settings
+        f.create_dataset("data", data=rng.randn(6, 64, 3).astype(np.float32),
+                         compression="gzip", compression_opts=4)
+        f.create_dataset("label", data=rng.randint(0, 40, (6, 1)).astype(np.uint8),
+                         compression="gzip", compression_opts=1)
+        f.create_dataset("normal", data=rng.randn(6, 64, 3).astype(np.float32),
+                         compression="gzip", compression_opts=4)
+        f.create_dataset("pid", data=rng.randint(0, 50, (6, 64)).astype(np.uint8),
+                         compression="gzip", compression_opts=1)
+    names = ("load_h5", "load_h5_with_normals", "load_h5_with_seg")
+    want = {name: getattr(jax_modelnet, name)(path) for name in names}
     with mock.patch.dict(sys.modules, {"h5py": None}):
-        with pytest.raises(ImportError, match="h5py.*ROADMAP.md queue 1, item 4"):
-            modelnet.load_h5(str(tmp_path / "missing.h5"))
+        for name in names:
+            got = getattr(modelnet, name)(path)
+            assert [a.dtype for a in got] == [b.dtype for b in want[name]]
+            assert_same(got, want[name])

@@ -33,7 +33,7 @@ SCRIPT = textwrap.dedent(
     """
     import sys
     BLOCKED = ("jax", "jaxlib", "haiku", "flax", "optax", "msgpack", "nestinet_tpu",
-               "PIL", "matplotlib", "tensorboard", "sklearn")
+               "PIL", "matplotlib", "tensorboard", "sklearn", "h5py")
     for name in BLOCKED:
         sys.modules[name] = None  # any import of them now raises ImportError
 
@@ -64,6 +64,14 @@ SCRIPT = textwrap.dedent(
         "nestinet_tpu_torch.data.ply",
         "nestinet_tpu_torch.data.pointcloud",
         "nestinet_tpu_torch.data.modelnet",
+        "nestinet_tpu_torch.data.h5",
+        "nestinet_tpu_torch.viz",
+        "nestinet_tpu_torch.viz.canvas",
+        "nestinet_tpu_torch.viz.colors",
+        "nestinet_tpu_torch.viz.png",
+        "nestinet_tpu_torch.viz.clouds",
+        "nestinet_tpu_torch.viz.fv",
+        "nestinet_tpu_torch.viz.normals",
         "nestinet_tpu_torch.train.distributed",
         "nestinet_tpu_torch.train.mesh",
         "nestinet_tpu_torch.data.native",
@@ -206,10 +214,19 @@ SCRIPT = textwrap.dedent(
                        "lists.txt", "--dataset_name", "s", "--batch_size", "64", "--device", "cpu"])
         results = os.path.join(run, "s_results")
         evaluate.main(["--normal_results_path", results, "--data_path", synth_root,
-                       "--expert_statistics", "1", "--n_experts", "2"])
+                       "--expert_statistics", "1", "--n_experts", "2",
+                       "--export_visualizations", "1"])
         with open(os.path.join(results, "images", "expert_statistics",
                                "testset_expert_statistics.json")) as f:
             assert sum(json.load(f)["count"]) == 6 * 10
+        from nestinet_tpu_torch.viz.png import read_png
+        assert read_png(os.path.join(results, "images", "expert_statistics",
+                                     "point_count_all.png")).ndim == 3
+        assert len(os.listdir(os.path.join(results, "images", "phi_theta"))) == 6
+        from nestinet_tpu_torch.data import modelnet
+        h5_dir = os.path.join("nestinet_tpu_torch", "testdata", "modelnet_h5")
+        data, label, pid = modelnet.load_h5_with_seg(os.path.join(h5_dir, "ply_data_seg0.h5"))
+        assert data.shape == (8, 512, 3) and pid.shape == (8, 512)
         depth = (1000 + 10 * np.arange(12 * 16).reshape(12, 16)).astype(">u2")
         raw = b"".join(bytes(1) + row.tobytes() for row in depth)  # filter 0 rows
         chunk = lambda k, d: struct.pack(">I", len(d)) + k + d + struct.pack(">I", zlib.crc32(k + d))
@@ -254,7 +271,7 @@ def _port_files():
 
 
 BLOCKED = ("nestinet_tpu", "jax", "jaxlib", "haiku", "flax", "optax", "msgpack", "PIL",
-           "matplotlib", "tensorboard", "sklearn")
+           "matplotlib", "tensorboard", "sklearn", "h5py")
 
 
 def _jax_package_imports(path):
