@@ -7,9 +7,10 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
   1. device: require CUDA, print the card's name and power limit, turn
      TF32 off (the JAX reference computes in float32);
-  2. build: compile both CUDA libraries (`csrc/mups_kernel.cu`, the two
-     MuPS kernels, and `csrc/int8_conv.cu`, the int8 conv) with nvcc into
-     the gitignored build directory, one nvcc per library, started
+  2. build: compile the three CUDA libraries (`csrc/mups_kernel.cu`, the
+     two MuPS kernels; `csrc/int8_conv.cu`, the int8 convs, k > 1;
+     `csrc/int8_gemm.cu`, the int8 GEMM of the k = 1 layers) with nvcc
+     into the gitignored build directory, one nvcc per library, started
      together; print their ptxas lines;
   3. MuPS kernel (one row per ticket of a persistent grid) against its
      plain PyTorch version at the serving shapes (384 and 768 rows of 512
@@ -25,16 +26,20 @@ and prints no result):
      (`mups_kernel_parts.served_rows`: 256 patches x 3 radii extracted on
      the card from a 100,000-point synthetic sphere, n_eff about 31, 270 and
      512), held the same way and timed;
-  5. the fused int8 conv kernel (bf16 in, quantized on load, wgmma; ReLU
-     and max|out| in its epilogue) against its plain version (the quantize
+  5. the fused int8 kernels (bf16 in, quantized on load, wgmma; ReLU and
+     max|out| in the epilogue) against their plain version (the quantize
      pass, an exact integer conv in float64 and the same float32 epilogue)
      at every distinct conv of the flagship manager and both expert widths
-     and every FC layer, each at B = 256 and at a routed sub-batch of 37,
-     ReLU off (with a forwarded bound) and on (the scale from max|x|):
-     outputs and max|out| identical; each shape timed (CUDA events), with
-     `torch._int_mm` on the same int8 operands as the yardstick at the
-     1x1x1 convs and FCs, and its bound; the plain version's time at the
-     widest conv;
+     and every FC layer, each at B = 256 and at a routed sub-batch of 37
+     (the FCs and the 2^3 grid's convs also at 64 and 1), ReLU off and on,
+     each with a forwarded bound and with the scale from max|x|: outputs
+     and max|out| identical, and each call launched the kernel
+     `int8_cuda.kernel_for` names and no other (the GEMM at every 1x1x1
+     conv and FC, the conv kernels above); each shape timed (CUDA events)
+     beside its bound, its kernel, tile and cluster, with `torch._int_mm` on
+     the same int8 operands as the yardstick at the 1x1x1 convs and FCs;
+     the plain version's time at the widest conv and the widest k = 1
+     layer;
   6. device extraction: one batch of 256 queries per radius of the
      flagship config on one synthetic shape, extracted on the card and on
      the CPU from the same inputs: grids, selected rows, hit masks and
@@ -59,17 +64,20 @@ and prints no result):
      BatchNorm folded, in int8 and in int8 with BatchNorm folded (the mode
      JAX serves after `restore_model` folds, then quantizes), each on the
      30,000 patches, checked as in phase 7; the int8 paths must launch the
-     int8 kernel, once a conv or linear layer of the manager a batch and of
-     the expert a run (`int8_calls`, `check_int8_launches`), and the others
-     must not;
+     int8 kernels, once a conv or linear layer of the manager a batch and
+     of the expert a run, the GEMM once a layer `kernel_for` sends it (17
+     and 12 of the 28 and 20) (`int8_calls`, `check_int8_launches`), and the
+     others must not;
  11. one device batch in each dtype, routed and dense: manager ids
      identical (under int8 too: the manager sees the same batch), bfloat16
      normals within 5% of the largest |normal| (cuDNN may sum a sub-batch
      in another order); each dtype's agreement with float32 printed, not
      held (random weights); the manager's time and its device-time split
-     (convolutions, int8 kernel) in each dtype; under int8 the device
-     launches of one batch routed on its own (`route_sparse`) and of one
-     conv (`torch.profiler`);
+     (convolutions, int8 kernels, the GEMM) in each dtype, and under int8
+     an expert run's; under int8 the device launches of one batch routed on
+     its own (`route_sparse`) and of one conv (`torch.profiler`), and
+     each int8 kernel's own count of one manager call and of one expert
+     run, held to the layers (`int8_calls`);
  12. times: both MuPS kernels and their plain version (CUDA events, median
      after warm-up) on random and on served rows, each beside its bound,
      extraction per batch, the forward, and each serving path's patches/s
@@ -106,7 +114,8 @@ and prints no result):
      are taken).  (a) Each serves one of the six test shapes (5,000
      patches) through `predict_shapes_device` in float32 and bfloat16, the
      single-scale model also in int8 with BatchNorm folded, which must
-     launch the int8 kernel: one MuPS launch a batch, finite `.normals` and
+     launch the int8 kernels once a layer a batch (the GEMM once a 1x1x1 conv
+     or linear): one MuPS launch a batch, finite `.normals` and
      no `.experts`, a finite RMS, patches/s and peak memory; the switching
      model's share of served patches in each branch is printed, and a
      branch that serves none fails the run; one device batch is held
@@ -262,6 +271,10 @@ N_EXPERTS = 7
 BLOCKS = (1, 2, 4, 8)
 INT8_BATCH = 256  # the device path's batch
 INT8_SUB_BATCH = 37  # a routed expert's sub-batch at B = 256
+# phase 5 also times the linears and the 2^3 grid's convs at these: a routed
+# run of B = 256 takes max(32, B // 4) = 64 rows, and a lone patch
+INT8_SMALL_BATCHES = (64, 1)
+INT8_COUNTERS = ("int8_conv3d", "int8_gemm")  # the int8 kernels' launch counts
 KERNEL_ATOL = 1e-5
 GRAD_ATOL = 1e-4
 NORMALS_ATOL = 1e-4
@@ -663,31 +676,51 @@ def int_mm_ms(args, B, r):
 
 
 def check_int8_kernel(gen, dev, card):
-    """Phase 5: the fused int8 kernel against its plain version at every
-    conv and FC shape of the flagship, at B = 256 and 37, ReLU off and on,
+    """Phase 5: the int8 kernels against their plain version at every conv
+    and FC shape of the flagship and both expert widths, at B = 256 and 37
+    (the FCs and the 2^3 grid's convs also at B = 64 and 1), ReLU off and on,
     each with the forwarded bound and with the scale from max|x|: outputs
-    and max|out| identical.  Returns (max abs err, per-shape rows, the widest conv's
-    row with the plain version's time)."""
+    and max|out| identical, and each call launched the kernel `kernel_for`
+    names (the GEMM at k = 1, the conv kernels above) and no other.  Each
+    shape timed (CUDA events) beside its bound and, at k = 1, `torch._int_mm`
+    on the int8 operands.  Returns (max abs err, per-shape rows, the widest
+    conv's and the widest k = 1 layer's rows with the plain version's time)."""
     import torch
 
     from nestinet_tpu_torch.core.device import cuda_median_ms
     from nestinet_tpu_torch.ops import quant
     from nestinet_tpu_torch.ops.kernels import int8_cuda
 
+    t5 = time.perf_counter()
     convs, fcs = int8_layer_shapes()
     cases = [(B, cin, cout, k, r) for B in (INT8_BATCH, INT8_SUB_BATCH)
              for cin, cout, k, r in convs]
-    cases += [(B, cin, cout, 1, 1) for B in (INT8_BATCH, INT8_SUB_BATCH) for cin, cout in fcs]
+    cases += [(B, cin, cout, k, r) for B in INT8_SMALL_BATCHES
+              for cin, cout, k, r in convs if r == 2]
+    cases += [(B, cin, cout, 1, 1) for B in (INT8_BATCH, INT8_SUB_BATCH, *INT8_SMALL_BATCHES)
+              for cin, cout in fcs]
+    sms = int8_cuda.sm_count(dev.index)
     max_err, rows = 0.0, []
     for B, cin, cout, k, r in cases:
         args = int8_case(gen, dev, B, cin, cout, k, r)
         x, w_q, s_w, b, x_amax = args
+        cin_p, M = w_q.shape[-1], B * r ** 3
+        bm, bn = int8_cuda.tile_shape(M, cout, sms)
+        which = int8_cuda.kernel_for(cin, r, r, r, cin_p, k, bm, bn)
+        counter = "int8_gemm" if which == "gemm" else "int8_conv3d"
+        if k == 1 and which != "gemm":
+            fail(f"the 1x1x1 conv or linear {(B, cin, cout, k, r)} would run the {which} kernel")
         for relu, bound_in in itertools.product((False, True), (x_amax, None)):
+            for kk in int8_cuda.KERNELS:
+                kk.reset_launches()
             got, got_amax = quant.int8_conv3d_fused(x, w_q, s_w, b, k, bound_in, relu=relu,
                                                     want_amax=True)
+            launches = {n: c for kk in int8_cuda.KERNELS for n, c in kk.launches.items()}
             want, want_amax = quant.int8_conv3d_fused_reference(x, w_q, s_w, b, k, bound_in,
                                                                 relu=relu, want_amax=True)
             torch.cuda.synchronize()
+            if launches != {n: int(n == counter) for n in INT8_COUNTERS}:
+                fail(f"int8 {(B, cin, cout, k, r)} ({which}) launched {launches}")
             if got.dtype != torch.bfloat16 or got.shape != (B, cout, r, r, r):
                 fail(f"int8 kernel output {got.dtype} {tuple(got.shape)} at "
                      f"{(B, cin, cout, k, r)}")
@@ -695,43 +728,53 @@ def check_int8_kernel(gen, dev, card):
             err = (got.float() - want.float()).abs().max().item()
             max_err = max(max_err, err)
             if n_diff or not torch.equal(got_amax, want_amax):
-                fail(f"int8 kernel differs from its plain version at {(B, cin, cout, k, r)}, "
-                     f"relu={relu}, bound {'forwarded' if bound_in is not None else 'max|x|'}: "
-                     f"{n_diff} outputs, amax {got_amax.item()} vs "
-                     f"{want_amax.item()}")
+                fail(f"int8 kernel ({which}) differs from its plain version at "
+                     f"{(B, cin, cout, k, r)}, relu={relu}, bound "
+                     f"{'forwarded' if bound_in is not None else 'max|x|'}: {n_diff} outputs, "
+                     f"amax {got_amax.item()} vs {want_amax.item()}")
         ms = cuda_median_ms(lambda: int8_cuda.int8_conv3d_cuda(
             x, w_q, s_w, b, k, x_amax, relu=True, want_amax=True), warmup=2, iters=10)
         ops = 2.0 * B * r ** 3 * cout * k ** 3 * cin
         nbytes = B * r ** 3 * (cin + cout) * 2 + w_q.numel() + cout * 8 + 8
         bound_ms, bound_by = bound(ops, nbytes, INT8_OPS_PER_S)
         lib_ms = int_mm_ms(args, B, r) if k == 1 else None
-        bm, bn = int8_cuda.tile_shape(B * r ** 3, cout, int8_cuda.sm_count(x.device.index))
-        rows.append({"B": B, "cin": cin, "cout": cout, "k": k, "r": r, "tile": [bm, bn],
-                     "ms": ms, "tops": ops / ms / 1e9, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": lib_ms})
+        if which == "gemm":
+            bn, splits = int8_cuda.gemm_plan(M, cout, cin_p, sms)
+            bm = int8_cuda.GEMM_BM
+        else:
+            splits = 1
+        rows.append({"B": B, "cin": cin, "cout": cout, "k": k, "r": r, "kernel": which,
+                     "tile": [bm, bn], "cluster": splits, "ms": ms, "tops": ops / ms / 1e9,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
         lib = "" if lib_ms is None else f", torch._int_mm {lib_ms:.4f} ms"
-        print(f"int8 kernel [B={B}, cin={cin}, cout={cout}, k={k}, r={r}, tile {bm}x{bn}]: "
-              f"identical to the plain version (ReLU off and on, forwarded bound and max|x|, "
-              f"max|out| too); {ms:.4f} ms, "
+        print(f"int8 {which} kernel [B={B}, cin={cin}, cout={cout}, k={k}, r={r}, tile "
+              f"{bm}x{bn}, cluster {splits}]: identical to the plain version (ReLU off and on, "
+              f"forwarded bound and max|x|, max|out| too), launched it alone; {ms:.4f} ms, "
               f"{ops / ms / 1e9:.1f} TOPS, bound {bound_ms:.4f} ms ({bound_by}){lib}",
               flush=True)
-    widest = max(rows, key=lambda t: t["B"] * t["r"] ** 3 * t["cout"] * t["k"] ** 3 * t["cin"])
-    args = int8_case(gen, dev, widest["B"], widest["cin"], widest["cout"], widest["k"],
-                     widest["r"])
-    k = widest["k"]
-    widest = dict(widest)
-    widest["ms"] = cuda_median_ms(lambda: int8_cuda.int8_conv3d_cuda(
-        *args[:4], k, args[4], relu=True, want_amax=True))
-    widest["plain_ms"] = cuda_median_ms(lambda: quant.int8_conv3d_fused_reference(
-        *args[:4], k, args[4], relu=True, want_amax=True), warmup=1, iters=3)
-    widest["tops"] = 2.0 * widest["B"] * widest["r"] ** 3 * widest["cout"] * k ** 3 * \
-        widest["cin"] / widest["ms"] / 1e9
-    print(f"time: int8 kernel {widest['ms']:.4f} ms ({widest['tops']:.1f} int8 TOPS, "
-          f"{100 * widest['bound_ms'] / widest['ms']:.1f}% of its bound "
-          f"{widest['bound_ms']:.4f} ms), plain {widest['plain_ms']:.4f} ms at the widest conv "
-          f"[B={widest['B']}, cin={widest['cin']}, cout={widest['cout']}, k={k}, "
-          f"r={widest['r']}] [{card}]", flush=True)
-    return max_err, rows, widest
+
+    def widest(of):
+        return dict(max(of, key=lambda t: t["B"] * t["r"] ** 3 * t["cout"] * t["k"] ** 3
+                        * t["cin"]))
+
+    picks = {"conv": widest([t for t in rows if t["k"] > 1]),
+             "gemm": widest([t for t in rows if t["k"] == 1])}
+    for kind, w in picks.items():
+        k = w["k"]
+        args = int8_case(gen, dev, w["B"], w["cin"], w["cout"], k, w["r"])
+        w["ms"] = cuda_median_ms(lambda: int8_cuda.int8_conv3d_cuda(
+            *args[:4], k, args[4], relu=True, want_amax=True))
+        w["plain_ms"] = cuda_median_ms(lambda: quant.int8_conv3d_fused_reference(
+            *args[:4], k, args[4], relu=True, want_amax=True), warmup=1, iters=3)
+        w["tops"] = 2.0 * w["B"] * w["r"] ** 3 * w["cout"] * k ** 3 * w["cin"] / w["ms"] / 1e9
+        print(f"time: int8 {w['kernel']} kernel {w['ms']:.4f} ms ({w['tops']:.1f} int8 TOPS, "
+              f"{100 * w['bound_ms'] / w['ms']:.1f}% of its bound {w['bound_ms']:.4f} ms, "
+              f"{w['bound_by']}), plain {w['plain_ms']:.4f} ms at the widest "
+              f"{'conv' if kind == 'conv' else 'k = 1 layer'} [B={w['B']}, cin={w['cin']}, "
+              f"cout={w['cout']}, k={k}, r={w['r']}] [{card}]", flush=True)
+    print(f"phase 5: {len(cases)} shapes, the phase took {time.perf_counter() - t5:.1f} s",
+          flush=True)
+    return max_err, rows, picks
 
 
 def device_launches(fn) -> int:
@@ -826,28 +869,82 @@ def check_outputs(data, out_dir, testset, n_experts):
     return summary
 
 
-def int8_calls(model) -> tuple[int, int]:
-    """(manager, expert): the int8 kernel launches of one call of the
-    manager and of one expert run, one a conv or linear layer; every expert
-    must make the same number."""
+def int8_launches(launches: dict) -> int:
+    """The int8 kernels' launches in a dict of launch counts: the conv
+    kernels' (k > 1) and the GEMM's (k = 1)."""
+    return sum(launches.get(k, 0) for k in INT8_COUNTERS)
+
+
+def int8_calls(model) -> dict:
+    """The int8 launches of one call of the manager and of one expert run
+    (a dense model: of one call of the model, and no run), one a conv or
+    linear layer: {"all": (manager, expert), "int8_gemm": the same for the
+    layers `int8_cuda.kernel_for` sends to the GEMM at their input's shape
+    and a batch of DEVICE_BATCH on the card}.  The shapes come from one
+    float32 call of each part on the card on a zero grid of one patch (the
+    model before quantizing; it goes back where it lay), with a hook on
+    every layer.  Every expert must make the same numbers."""
+    import torch
+
+    from nestinet_tpu_torch.ops import quant
+    from nestinet_tpu_torch.ops.kernels import int8_cuda
     from nestinet_tpu_torch.ops.nn import _Conv3D, _Linear
 
-    def layers(net):
-        return sum(isinstance(m, (_Conv3D, _Linear)) for m in net.modules())
+    home = next(model.parameters()).device
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sms = int8_cuda.sm_count(dev.index)
+    grid = torch.zeros((1,) + (model.resolution,) * 3 + (20 * model.cfg.n_scales,),
+                       dtype=torch.float32, device=dev)
 
-    experts = {layers(e) for e in model.experts}
+    def layers(fn):
+        kernels = []
+
+        def hook(mod, args):
+            x = args[0]
+            C, (D, H, W) = x.shape[1], tuple(x.shape[2:]) if x.dim() == 5 else (1, 1, 1)
+            k, cout = getattr(mod, "kernel", 1), mod.b.shape[0]
+            bm, bn = int8_cuda.tile_shape(DEVICE_BATCH * D * H * W, cout, sms)
+            kernels.append(int8_cuda.kernel_for(C, D, H, W, quant.padded_channels(C), k, bm, bn))
+
+        hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+                 if isinstance(m, (_Conv3D, _Linear))]
+        try:
+            with torch.inference_mode():
+                fn()
+        finally:
+            for h in hooks:
+                h.remove()
+        return len(kernels), kernels.count("gemm")
+
+    model.to(dev)
+    try:
+        if hasattr(model, "experts"):
+            experts = {layers(lambda: model.expert_on_grid(i, grid))
+                       for i in range(len(model.experts))}
+            manager = layers(lambda: model.manager_probs(grid))
+        else:
+            experts, manager = {(0, 0)}, layers(lambda: model.forward_grid(grid))
+    finally:
+        model.to(home)
     if len(experts) != 1:
         fail(f"the experts differ in their int8 layers: {sorted(experts)}")
-    return layers(model.manager), experts.pop()
+    (m_all, m_k1), (e_all, e_k1) = manager, experts.pop()
+    return {"all": (m_all, e_all), "int8_gemm": (m_k1, e_k1)}
 
 
-def check_int8_launches(name: str, launches: int, batches: int, runs: int, per_call) -> int:
-    """Fail unless a routed int8 path launched the int8 kernel once a layer
-    of the manager a batch and of the expert a run; returns that count."""
-    want = batches * per_call[0] + runs * per_call[1]
-    if launches != want:
-        fail(f"{name}: {launches} int8 kernel launches, where {batches} batches and {runs} "
-             f"expert runs make {want} ({per_call[0]} a manager call, {per_call[1]} a run)")
+def check_int8_launches(name: str, launches: dict, batches: int, runs: int, per_call) -> int:
+    """Fail unless an int8 path launched the int8 kernels once a layer of
+    the manager (or dense model) a batch and of the expert a run, and the
+    GEMM once a k = 1 layer (`int8_calls`); returns the count."""
+    got = int8_launches(launches)
+    (m_all, e_all), k1 = per_call["all"], per_call["int8_gemm"]
+    want = batches * m_all + runs * e_all
+    if got != want:
+        fail(f"{name}: {got} int8 kernel launches, where {batches} batches and {runs} "
+             f"expert runs make {want} ({m_all} a manager call, {e_all} a run)")
+    if launches["int8_gemm"] != batches * k1[0] + runs * k1[1]:
+        fail(f"{name}: {launches['int8_gemm']} int8 GEMM launches, where the k = 1 layers "
+             f"make {batches * k1[0] + runs * k1[1]} ({k1[0]} a manager call, {k1[1]} a run)")
     return want
 
 
@@ -861,9 +958,9 @@ def routing_line(stats: dict) -> str:
 
 def serve(name, fn, kernels, card, int8: bool = False, int8_per=None):
     """Drive one serving path with every launch count at 0; check that it
-    launched the MuPS kernel once per batch, and the int8 kernel if and
-    only if it serves int8; routed in int8, as often as its batches and
-    expert runs make with `int8_per` (`int8_calls`)."""
+    launched the MuPS kernel once per batch, and the int8 kernels if and
+    only if it serves int8; in int8, as often as its batches and expert
+    runs make with `int8_per` (`int8_calls`)."""
     import torch
 
     for k in kernels:
@@ -882,11 +979,11 @@ def serve(name, fn, kernels, card, int8: bool = False, int8_per=None):
     if launches["tdmfv_n_est"] != stats["n_batches"]:
         fail(f"{name}: MuPS launches {launches['tdmfv_n_est']} != batches "
              f"{stats['n_batches']}")
-    if int8 != (launches["int8_conv3d"] > 0):
-        fail(f"{name}: {launches['int8_conv3d']} int8 kernel launches")
-    if int8 and "expert_runs" in stats:
-        check_int8_launches(name, launches["int8_conv3d"], stats["n_batches"],
-                            stats["expert_runs"], int8_per)
+    if int8 != (int8_launches(launches) > 0):
+        fail(f"{name}: {int8_launches(launches)} int8 kernel launches")
+    if int8 and int8_per is not None:
+        check_int8_launches(name, launches, stats["n_batches"], stats.get("expert_runs", 0),
+                            int8_per)
     if "jax" in sys.modules:
         fail("jax was imported")
     stats = {k: v for k, v in stats.items() if k not in ("shapes",)}
@@ -897,7 +994,7 @@ def serve(name, fn, kernels, card, int8: bool = False, int8_per=None):
 def device_time_split(fn):
     """One call of `fn` under torch.profiler (device activity only, so
     each row is a kernel): (device ms, share of convolution kernels, share
-    of the int8 kernel)."""
+    of the int8 kernels, share of the int8 GEMM alone)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -906,17 +1003,19 @@ def device_time_split(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    total = conv = int8 = 0.0
+    total = conv = int8 = gemm = 0.0
     for evt in prof.key_averages():
         us = evt.self_device_time_total
         total += us
-        if "int8_conv3d" in evt.key:
+        if "int8_gemm" in evt.key:
+            gemm += us
+        if any(t in evt.key for t in INT8_COUNTERS):
             int8 += us
         elif any(t in evt.key for t in ("conv", "fprop")):
             conv += us
     if total <= 0:
-        return float("nan"), float("nan"), float("nan")
-    return total / 1e3, conv / total, int8 / total
+        return float("nan"), float("nan"), float("nan"), float("nan")
+    return total / 1e3, conv / total, int8 / total, gemm / total
 
 
 def int8_launch_counts(model, grid, real) -> dict:
@@ -925,21 +1024,29 @@ def int8_launch_counts(model, grid, real) -> dict:
     kernel launches, the manager on the batch and one expert run of B rows
     (the router's unit: a served batch makes one manager call and its share
     of the runs), one conv of the manager with a forwarded bound (incep0's
-    k = 3 conv on its 1x1x1 conv's output) and the grid's first conv."""
+    k = 3 conv on its 1x1x1 conv's output) and the grid's first conv; and
+    each int8 kernel's own count (its wrapper's) of one manager call and of
+    one expert run."""
     import torch
 
     from nestinet_tpu_torch.infer.predict import route_sparse
     from nestinet_tpu_torch.ops.kernels import int8_cuda
 
+    def counted(fn):
+        for k in int8_cuda.KERNELS:
+            k.reset_launches()
+        fn()
+        return {n: c for k in int8_cuda.KERNELS for n, c in k.launches.items()}
+
     x = grid.permute(0, 4, 1, 2, 3)  # the manager's NCDHW input
     block = model.manager.backbone.incep0
     with torch.inference_mode():
         one = block.conv1(x)
-        int8_cuda.KERNEL.reset_launches()
-        route_sparse(model, grid, real)
-        kernel = int8_cuda.KERNEL.launches["int8_conv3d"]
+        kernel = int8_launches(counted(lambda: route_sparse(model, grid, real)))
         return {"routed_batch": device_launches(lambda: route_sparse(model, grid, real)),
                 "int8_kernel": kernel,
+                "kernels_manager": counted(lambda: model.manager_probs(grid)),
+                "kernels_expert_run": counted(lambda: model.expert_on_grid(0, grid)),
                 "manager": device_launches(lambda: model.manager_probs(grid)),
                 "expert_run": device_launches(lambda: model.expert_on_grid(0, grid)),
                 "per_conv": device_launches(lambda: block.conv2(one)),
@@ -1656,7 +1763,8 @@ def make_ablation_run(tmp, data, model_name, grids, queries, radii, seed, caps, 
     of the flagship's, 512 points, 8^3 Gaussians, random weights and
     BatchNorm state from a seed; the switching model's noise head spread
     across the switch); returns (run path, cfg, the model's radii indices,
-    the small branch's share on one batch or None)."""
+    the small branch's share on one batch or None, its int8 launches a
+    batch, `int8_calls`)."""
     import torch
 
     from nestinet_tpu_torch.core import checkpoint
@@ -1691,7 +1799,7 @@ def make_ablation_run(tmp, data, model_name, grids, queries, radii, seed, caps, 
     print(f"run dir: {model_name}, radii {cfg.patch_radius}, {n_params} weights"
           + ("" if share is None else f"; the small-scale branch takes {share:.3f} of one "
              f"batch of {DEVICE_BATCH}, the large-scale one {1 - share:.3f}"), flush=True)
-    return rd.path, cfg, idx, share
+    return rd.path, cfg, idx, share, int8_calls(model)
 
 
 def check_ablation_batch(run, cfg, idx, grids, queries, radii, seed, caps, dev):
@@ -1837,14 +1945,14 @@ def phase14(tmp, data, dev, grids, queries, radii, bseed, caps, run_gmm, kernels
     test_data = {m: sw_data if m == "ms_sw_n_est" else data for m in ABLATION_RADII}
     ablations = {}
     for model_name in ABLATION_RADII:
-        run, acfg, idx, share = make_ablation_run(tmp, data, model_name, grids, queries,
-                                                  radii, bseed, caps, dev)
+        run, acfg, idx, share, int8_per = make_ablation_run(tmp, data, model_name, grids,
+                                                            queries, radii, bseed, caps, dev)
         runs = {}
         for label, dtype, fold in ABLATION_DTYPES[model_name]:
             runs[label] = serve(f"{model_name} device {label}", lambda: predict_shapes_device(
                 run, dataset_name=f"ablation_{label}", testset="testset_one.txt",
                 data_path=data, batch_size=DEVICE_BATCH, compute_dtype=dtype,
-                fold_bn=fold), kernels, card, int8=dtype == "int8")
+                fold_bn=fold), kernels, card, int8=dtype == "int8", int8_per=int8_per)
             runs[label]["rms"] = check_outputs(data, runs[label]["output_dir"], "testset_one",
                                                None)["rms"]
             if "branch_rows" in runs[label]:
@@ -2301,12 +2409,11 @@ def phase16b_cli(data, run, dev_sparse, int8_fold, kernels, card, int8_per):
                  f"{[r['expert_runs'] for r in ranks]} of {stats['expert_runs']} expert runs")
         for r in ranks:
             if r["launches"]["tdmfv_n_est"] != r["n_batches"] or (
-                    (r["launches"]["int8_conv3d"] > 0) != (dtype == "int8")):
+                    (int8_launches(r["launches"]) > 0) != (dtype == "int8")):
                 fail(f"cli.test --data_parallel {DP_RANKS} {label}: rank launches {r}")
             if dtype == "int8":
                 check_int8_launches(f"cli.test --data_parallel {DP_RANKS} {label}, a rank",
-                                    r["launches"]["int8_conv3d"], r["n_batches"],
-                                    r["expert_runs"], int8_per)
+                                    r["launches"], r["n_batches"], r["expert_runs"], int8_per)
         if any(k.launches[n] for k in kernels for n in k.launches):
             fail("the two-rank serving launched a kernel in this process")
         out[label] = {k: v for k, v in stats.items() if k != "shapes"} | {
@@ -2565,11 +2672,11 @@ def phase18a(tmp, root, kernels, card) -> dict:
         if launches["tdmfv_n_est"] != batches:
             fail(f"phase 18a {mode}: {launches['tdmfv_n_est']} MuPS launches for {batches} "
                  f"batches")
-        if ("int8" in mode) != (launches["int8_conv3d"] > 0):
-            fail(f"phase 18a {mode}: int8 kernel launches {launches['int8_conv3d']}")
+        if ("int8" in mode) != (int8_launches(launches) > 0):
+            fail(f"phase 18a {mode}: int8 kernel launches {int8_launches(launches)}")
         if "int8" in mode:
-            check_int8_launches(f"phase 18a {mode}", launches["int8_conv3d"], batches,
-                                routing["expert_runs"], int8_per)
+            check_int8_launches(f"phase 18a {mode}", launches, batches, routing["expert_runs"],
+                                int8_per)
     return modes
 
 
@@ -2711,11 +2818,10 @@ def phase18d(tmp, data, run, kernels, card, int8_per) -> dict:
           + f" deg, launches {q_launches} [{card}]", flush=True)
     if len(rms) != 6 or not all(np.isfinite(v) for v in rms.values()):
         fail(f"phase 18d: run_quality at full width gave {rms}")
-    if q_launches["tdmfv_n_est"] != batches or q_launches["int8_conv3d"] == 0:
+    if q_launches["tdmfv_n_est"] != batches or int8_launches(q_launches) == 0:
         fail(f"phase 18d: run_quality at full width launched {q_launches} for {batches} "
              f"batches")
-    check_int8_launches("phase 18d run_quality", q_launches["int8_conv3d"], batches, runs,
-                        int8_per)
+    check_int8_launches("phase 18d run_quality", q_launches, batches, runs, int8_per)
 
     sw_data = os.path.join(tmp, "switching")
     with open(os.path.join(sw_data, "testset_switching.txt")) as f:
@@ -2897,8 +3003,8 @@ def main(argv=None) -> int:
     from nestinet_tpu_torch.ops.kernels.build import build_all
     from nestinet_tpu_torch.scripts import mups_kernel_exp
 
-    kernel, kernel8 = mups_cuda.KERNEL, int8_cuda.KERNEL
-    kernels = (kernel, kernel8)
+    kernel = mups_cuda.KERNEL
+    kernels = (kernel, *int8_cuda.KERNELS)
     t0 = time.perf_counter()
     paths = build_all(kernels)
     secs = time.perf_counter() - t0
@@ -2913,7 +3019,7 @@ def main(argv=None) -> int:
                 fail(f"the library has no {k}_launch")
             if lib_kernel.ptxas_log and f"{k}_kernel" not in lib_kernel.ptxas_log:
                 fail(f"ptxas compiled no {k}_kernel")
-    print(f"build: both libraries in {secs:.2f} s", flush=True)
+    print(f"build: {len(kernels)} libraries in {secs:.2f} s", flush=True)
     record["build_seconds"] = secs
 
     # ---- 3. MuPS kernel against its plain version ----
@@ -2942,7 +3048,7 @@ def main(argv=None) -> int:
     k1_err = max(k1_err, wide_err, served["max_abs_err"])
     k2_err = max(k2_err, wide_err, served["blocked_max_abs_err"])
 
-    # ---- 5. int8 kernel against its plain version at every flagship shape ----
+    # ---- 5. the int8 kernels against their plain version at every flagship shape ----
     i8_err, i8_rows, i8_widest = check_int8_kernel(gen, dev, card)
 
     from nestinet_tpu_torch.core import checkpoint
@@ -3084,7 +3190,7 @@ def main(argv=None) -> int:
             mgr_split = {"f32": device_time_split(lambda: model.manager_probs(grid))}
             mgr_ms = {"f32": cuda_median_ms(lambda: model.manager_probs(grid), warmup=2,
                                             iters=10)}
-        gaps, launch_counts = {}, {}
+        gaps, launch_counts, expert_split = {}, {}, {}
         for label, dtype, fold in DTYPE_PATHS:
             _, _, _, m = load_run(rd.path, dev, dtype, fold)
             with torch.inference_mode():
@@ -3109,21 +3215,35 @@ def main(argv=None) -> int:
                 mgr_ms[label] = cuda_median_ms(lambda: m.manager_probs(g), warmup=2, iters=10)
                 if dtype == "int8":
                     launch_counts[label] = int8_launch_counts(m, g, real)
+                    expert_split[label] = device_time_split(lambda: m.expert_on_grid(0, g))
             del m
-        for label, (dev_ms, conv, int8) in mgr_split.items():
+        for label, (dev_ms, conv, int8, gemm) in mgr_split.items():
             print(f"time: manager {label} {mgr_ms[label]:.3f} ms per batch of {DEVICE_BATCH}; "
                   f"profiled {dev_ms:.3f} ms of device time, convolutions {100 * conv:.1f}%, "
-                  f"int8 kernel {100 * int8:.1f}% [{card}]", flush=True)
+                  f"int8 kernels {100 * int8:.1f}% (the GEMM {100 * gemm:.1f}%) [{card}]",
+                  flush=True)
+        for label, (dev_ms, _, int8, gemm) in expert_split.items():
+            print(f"time: an expert run of {DEVICE_BATCH} rows, {label}: {dev_ms:.3f} ms of "
+                  f"device time, int8 kernels {100 * int8:.1f}% (the GEMM {100 * gemm:.1f}%) "
+                  f"[{card}]", flush=True)
         for label, c in launch_counts.items():
+            for part, want in (("manager", 0), ("expert_run", 1)):
+                got = c[f"kernels_{part}"]
+                if (int8_launches(got), got["int8_gemm"]) != (int8_per["all"][want],
+                                                              int8_per["int8_gemm"][want]):
+                    fail(f"{label}: one {part} call launched {got}, where its layers make "
+                         f"{int8_per['all'][want]} int8 launches, "
+                         f"{int8_per['int8_gemm'][want]} of them the GEMM's")
             runs = dtype_runs[label]["expert_runs"] / dtype_runs[label]["n_batches"]
             c["served_batch"] = c["manager"] + runs * c["expert_run"]
             print(f"launches {label}: {c['routed_batch']} device launches for a batch of "
-                  f"{DEVICE_BATCH} routed on its own ({c['int8_kernel']} of the int8 kernel); "
+                  f"{DEVICE_BATCH} routed on its own ({c['int8_kernel']} of the int8 kernels); "
                   f"the manager {c['manager']}, an expert run of {DEVICE_BATCH} rows "
                   f"{c['expert_run']}, so a batch served through the router ({runs:.3f} runs "
                   f"a batch in phase 10) {c['served_batch']:.1f}; {c['per_conv']} per conv "
-                  f"with a forwarded bound, {c['per_first_conv']} for the grid's first conv",
-                  flush=True)
+                  f"with a forwarded bound, {c['per_first_conv']} for the grid's first conv; "
+                  f"the int8 kernels' counts: the manager {c['kernels_manager']}, an expert "
+                  f"run {c['kernels_expert_run']}", flush=True)
 
         # ---- 12. times ----
         k1_ms, plain_ms = {}, {}
@@ -3216,6 +3336,7 @@ def main(argv=None) -> int:
         "blocked_ms": blocked, "mups_kernel_exp": exp, "mups_served_rows": served,
         "extract_ms_b256": ex_ms,
         "forward_ms_b128": fwd_ms, "manager_ms_b256": mgr_ms, "manager_split_b256": mgr_split,
+        "expert_run_split_b256": expert_split,
         "device_sparse": dev_sparse, "host_sparse": host_sparse, "host_dense": host_dense,
         "device_sparse_dtypes": dtype_runs, "dtype_gaps_one_batch": gaps,
         "int8_max_abs_err": i8_err, "int8_widest": i8_widest, "int8_by_shape": i8_rows,
@@ -3295,6 +3416,9 @@ def main(argv=None) -> int:
             "replaces": "nestinet_tpu/ops/quant.py:85",
             "launches": dtype_runs["int8"]["launches"]["int8_conv3d"],
             "launches_int8_fold": dtype_runs["int8+fold"]["launches"]["int8_conv3d"],
+            "launches_per_manager_batch": launch_counts["int8"]["kernels_manager"]["int8_conv3d"],
+            "launches_per_expert_run":
+                launch_counts["int8"]["kernels_expert_run"]["int8_conv3d"],
             "launches_ss_int8_fold":
                 ablations["ss_norm_est"]["serving"]["int8+fold"]["launches"]["int8_conv3d"],
             "launches_data_parallel": dp_launches(dp, "int8_conv3d"),
@@ -3303,13 +3427,38 @@ def main(argv=None) -> int:
             "launches_full_width_run_quality":
                 quality["full_width"]["run_quality"]["launches"]["int8_conv3d"],
             "max_abs_err": i8_err,
-            "ms": i8_widest["ms"],
-            "plain_ms": i8_widest["plain_ms"],
-            "bound_ms": i8_widest["bound_ms"],
-            "bound_by": i8_widest["bound_by"],
+            "ms": i8_widest["conv"]["ms"],
+            "plain_ms": i8_widest["conv"]["plain_ms"],
+            "bound_ms": i8_widest["conv"]["bound_ms"],
+            "bound_by": i8_widest["conv"]["bound_by"],
             "library_ms": None,
-            "tops": i8_widest["tops"],
-            "by_shape": i8_rows,
+            "tops": i8_widest["conv"]["tops"],
+            "by_shape": [t for t in i8_rows if t["kernel"] != "gemm"],
+        },
+        {
+            "name": "int8_gemm",
+            "route": "cuda",
+            "source": "nestinet_tpu_torch/csrc/int8_gemm.cu",
+            "replaces": "nestinet_tpu/ops/quant.py:129",
+            "launches": dtype_runs["int8"]["launches"]["int8_gemm"],
+            "launches_int8_fold": dtype_runs["int8+fold"]["launches"]["int8_gemm"],
+            "launches_per_manager_batch": launch_counts["int8"]["kernels_manager"]["int8_gemm"],
+            "launches_per_expert_run": launch_counts["int8"]["kernels_expert_run"]["int8_gemm"],
+            "launches_ss_int8_fold":
+                ablations["ss_norm_est"]["serving"]["int8+fold"]["launches"]["int8_gemm"],
+            "launches_data_parallel": dp_launches(dp, "int8_gemm"),
+            "launches_quality": {m: q["launches"]["int8_gemm"]
+                                 for m, q in quality["quality"].items()},
+            "launches_full_width_run_quality":
+                quality["full_width"]["run_quality"]["launches"]["int8_gemm"],
+            "max_abs_err": i8_err,
+            "ms": i8_widest["gemm"]["ms"],
+            "plain_ms": i8_widest["gemm"]["plain_ms"],
+            "bound_ms": i8_widest["gemm"]["bound_ms"],
+            "bound_by": i8_widest["gemm"]["bound_by"],
+            "library_ms": i8_widest["gemm"]["library_ms"],
+            "tops": i8_widest["gemm"]["tops"],
+            "by_shape": [t for t in i8_rows if t["kernel"] == "gemm"],
         },
     ]}))
     print(card)

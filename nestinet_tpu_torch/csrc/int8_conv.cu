@@ -1,5 +1,6 @@
-// int8 implicit-GEMM SAME conv3d (and linear), stride 1, for Hopper (sm_90a),
-// with the activation quantized as it is loaded and a fused epilogue.
+// int8 implicit-GEMM SAME conv3d, stride 1, k > 1, for Hopper (sm_90a), with
+// the activation quantized as it is loaded and a fused epilogue.  The 1x1x1
+// convs and the linears (k = 1, a plain GEMM) run int8_gemm.cu instead.
 //
 // Replaces: nestinet_tpu/ops/quant.py::conv_nd_int8 (:85-126) and
 // linear_int8 (:129-163), which JAX hands to XLA as an int8 convolution /
@@ -19,25 +20,22 @@
 //
 // as a GEMM with M = B*D*H*W output positions, N = cout and K = k^3 * cin_p
 // (cells outside the volume read 0, which is what zero-padding the float
-// input gives, since quantization maps 0 to 0).  A linear is the same
-// call with D = H = W = 1 and k = 1.
+// input gives, since quantization maps 0 to 0).
 //
-// Layouts: x bf16 NCDHW [B, C, D, H, W] (a linear's [B, C]), the blocks'
-// own layout; w_q int8 [cout, k^3, cin_p] with the channels zero-padded to
-// cin_p in {16, 32, 64} or a multiple of 128 (ops/quant.py), so one K
-// index (tap, ci) runs along contiguous bytes and every 64- or 128-byte K
-// tile holds whole taps or one slice of a tap; out bf16 NCDHW.  The
-// padding is TensorFlow's SAME for stride 1: `pad` cells before, k - 1 -
-// pad after.
+// Layouts: x bf16 NCDHW [B, C, D, H, W], the blocks' own layout; w_q int8
+// [cout, k^3, cin_p] with the channels zero-padded to cin_p in {16, 32,
+// 64} or a multiple of 128 (ops/quant.py), so one K index (tap, ci) runs
+// along contiguous bytes and every 64- or 128-byte K tile holds whole taps
+// or one slice of a tap; out bf16 NCDHW.  The padding is TensorFlow's SAME
+// for stride 1: `pad` cells before, k - 1 - pad after.
 //
 // What bounds it on an H100: at the flagship's widest convs (M = 131072 at
 // B = 256 on the 8^3 grid, K up to 125 * 256) the int8 MACs, about 10^12
 // operations per conv against tens of MB moved: tensor-core work, which
 // only wgmma reaches at full rate.  Two kernels share the arithmetic; the
-// host picks one from the shape:
-//   * int8_conv3d_direct_kernel, for 1x1x1 kernels (every conv's first
-//     branch, the linears) and the 8 x 8 grids (the 3^3 and 5^3 convs that
-//     hold most of the MACs).  There a core matrix of wgmma's A operand (8
+// wrapper names one from the shape (ops/kernels/int8_cuda.py::kernel_for):
+//   * int8_conv3d_direct_kernel, for the 8 x 8 grids (the 3^3 and 5^3
+//     convs that hold most of the MACs).  There a core matrix of wgmma's A operand (8
 //     rows x 16 bytes) is 8 consecutive cells of the quantized halo, so
 //     wgmma reads A straight from it (no swizzle; 16-channel groups `lbo`
 //     bytes apart, rows of cells `sbo` apart; the 8 x 8 grids zero-padded
@@ -47,7 +45,8 @@
 //     64-byte K tiles through a ring up to 16 deep; the consumers step the
 //     tap window without divisions and keep two wgmma groups in flight.
 //   * int8_conv3d_kernel, the gather kernel, for the rest (k = 2, 4 on the
-//     4^3 and 2^3 grids): the producer warpgroup quantizes the tile's halo
+//     4^3 and 2^3 grids, and the k = 1 shapes whose activation no tensor
+//     map takes, as a 3^3 grid's): the producer warpgroup quantizes the tile's halo
 //     (the linear range of input cells its windows reach) per 128-channel
 //     slice into shared memory, then gathers each 128-byte K tile's rows
 //     from it with 16-byte copies into the 128-byte-swizzled layout, B by
@@ -70,29 +69,22 @@
 //     separate multiply and add (__fmul_rn / __fadd_rn, which nvcc does
 //     not contract into an FMA), then round to nearest even to bf16;
 //     int32 -> float rounds to nearest as torch's cast does; ReLU and
-//     max|out| (atomicMax on the float bits, the wrapper zeroes it) on the
+//     max|out| (atomicMax on the float bits, zeroed by the launcher) on the
 //     bf16 values; the tile staged through shared memory and stored along
 //     the positions, coalesced.
 // |acc| <= 127^2 * K < 2^31 for K <= 133,000 (the flagship's largest K is
 // 512 * 4^3 = 32,768).
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-
-#include <cstdint>
 #include <cstring>
 #include <mutex>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kWG = 128;           // threads per warpgroup
 constexpr int kFill = 4;           // halo items a producer thread keeps in flight
-constexpr int kSmemMax = 232448;   // shared memory one block may use
 constexpr int kMaxTaps = 343;      // k <= 7
-constexpr int kTensorMapError = 1000;  // + CUresult: the weight map failed
-constexpr int kSmemError = 2000;       // the tile needs more shared memory than a block has
+constexpr int kGeometryError = 3000;   // the direct kernel was asked for a shape it does not take
 // the gather kernel
 constexpr int kBK = 128;           // bytes of K per tile: one 128-byte swizzle row
 constexpr int kStages = 4;         // depth of its ring
@@ -122,9 +114,10 @@ struct Shape {
 };
 
 // The direct kernel's geometry: wgmma reads A straight from the halo.
+// Tiles of whole z-planes of an 8 x 8 grid, the halo zero-padded (P planes of
+// Hp x Wp cells) so that every tap is a plain shift.
 struct Direct {
-  int w8;          // 1: tiles of whole z-planes of an 8 x 8 grid, the halo zero-padded
-                   // (P planes of Hp x Wp cells); 0: k = 1, the halo is the tile's rows
+  int ok;          // 0 where the shape does not fit (then nothing launches)
   int P, Hp, Wp;
   int cw;          // channels per halo slice and K tile: 32 or 64
   int n_chunks;    // cin_p / cw
@@ -133,96 +126,11 @@ struct Direct {
   int stages;      // depth of the B ring
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of a K-major tile in the 128-byte swizzle:
-// rows of 128 bytes, 8-row groups 1024 bytes apart; the tile base is
-// 1024-byte aligned, so a K step of 32 bytes is a step of the start address.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |            // LBO (unused here)
-         (static_cast<uint64_t>(1024 >> 4) << 32) |    // SBO
-         (static_cast<uint64_t>(1) << 62);             // SWIZZLE_128B
-}
-
-// The same for 64-byte rows in the 64-byte swizzle (8-row groups 512 bytes
-// apart): the direct kernel's B tiles.
-__device__ __forceinline__ uint64_t sw64_desc(const void* p) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) | (static_cast<uint64_t>(512 >> 4) << 32) |
-         (static_cast<uint64_t>(2) << 62);
-}
-
 // A K-major tile without swizzle: core matrices of 8 rows x 16 bytes (128
 // contiguous bytes), `sbo` bytes apart along M and `lbo` bytes apart along K.
 __device__ __forceinline__ uint64_t plain_desc(const void* p, int lbo, int sbo) {
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 template <int BN>
@@ -304,28 +212,6 @@ struct Wgmma<128> {
   }
 };
 
-// clip(rint(v / s_x), -127, 127) without a branch: the reciprocal's
-// product, clamped to [-128, 128] and rounded to nearest even by adding and
-// subtracting 1.5 * 2^23.  `near` is set where the product lies within 2^-14
-// of a tie between two integers, where the exact quotient must decide:
-// |v * r - v / s_x| <= 2^-16 for |v / s_x| <= 128, so elsewhere both round
-// alike.
-__device__ __forceinline__ int quantize_fast(float v, float inv_s, bool& near) {
-  const float p = fminf(fmaxf(__fmul_rn(v, inv_s), -128.0f), 128.0f);
-  const float t = __fadd_rn(p, 12582912.0f);
-  near = fabsf(__fsub_rn(p, __fsub_rn(t, 12582912.0f))) > 0.5f - 0x1p-14f;
-  return max(-127, min(127, __float_as_int(t) - 0x4B400000));
-}
-
-// The plain version's arithmetic, for the values near a tie.
-__device__ __forceinline__ uint32_t quantize_exact(float v, float s_x) {
-  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, s_x)), -127.0f), 127.0f);
-  return static_cast<uint32_t>(static_cast<int>(q)) & 0xFFu;
-}
-
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
-
 // Quantizes n_items items of the activation into shared memory, with
 // thread t of nthreads.  `item(i, src, ch, dst)` names item i: 8
 // consecutive input cells from the linear cell src (b * S + p) and the 4
@@ -385,7 +271,7 @@ __device__ __forceinline__ void fill_items(int n_items, int t, int nthreads, int
         for (int e = 0; e < 8; ++e) {
           bool near;
           const float v = (e & 1) ? bf16_hi(w[e / 2]) : bf16_lo(w[e / 2]);
-          packed[e] |= (static_cast<uint32_t>(quantize_fast(v, inv_s, near)) & 0xFFu) << (8 * u);
+          packed[e] |= (quantize_fast(v, inv_s, near) & 0xFFu) << (8 * u);
           near_mask |= static_cast<uint32_t>(near) << (8 * u + e);
         }
       }
@@ -618,14 +504,14 @@ __global__ void __launch_bounds__((BM / 64 + 1) * kWG, 1) int8_conv3d_kernel(
   }
 }
 
-// The direct kernel: for 1x1x1 kernels and for the 8 x 8 grids, where a
-// core matrix of wgmma's A (8 rows x 16 bytes) is 8 consecutive cells of
-// the halo, wgmma reads A straight from the quantized halo (no swizzle,
-// 16-channel groups `lbo` bytes apart) and the gather copy is gone.  The
-// halo is double-buffered per 32- or 64-channel slice (filled by producer
-// warps 1-3 while the consumers multiply the other slice), B comes by TMA
-// in 64-byte K tiles through a ring up to 16 deep (producer warp 0, lane
-// 0), one K tile per (slice, tap).
+// The direct kernel: for the 8 x 8 grids, where a core matrix of wgmma's A
+// (8 rows x 16 bytes) is 8 consecutive cells of the padded halo, wgmma
+// reads A straight from the quantized halo (no swizzle, 16-channel groups
+// `lbo` bytes apart) and the gather copy is gone.  The halo is
+// double-buffered per 32- or 64-channel slice (filled by producer warps 1-3
+// while the consumers multiply the other slice), B comes by TMA in 64-byte
+// K tiles through a ring up to 16 deep (producer warp 0, lane 0), one K
+// tile per (slice, tap).
 template <int BM, int BN>
 __global__ void __launch_bounds__((BM / 64 + 1) * kWG, 1) int8_conv3d_direct_kernel(
     const __grid_constant__ CUtensorMap w_map, const __nv_bfloat16* __restrict__ x,
@@ -698,7 +584,7 @@ __global__ void __launch_bounds__((BM / 64 + 1) * kWG, 1) int8_conv3d_direct_ker
         *reinterpret_cast<uint4*>(halo + i) = make_uint4(0, 0, 0, 0);
       named_barrier(2, kFillers);
       const int quads = dg.cw / 4;
-      const int rows = dg.w8 ? dg.P * 8 : BM / 8;  // runs of 8 cells
+      const int rows = dg.P * 8;  // runs of 8 cells: x-rows of the padded planes
       const int b = static_cast<int>(m0 / sh.S);
       const int z0 = static_cast<int>(m0 % sh.S) / 64;
       for (int c = 0; c < dg.n_chunks; ++c) {
@@ -708,16 +594,11 @@ __global__ void __launch_bounds__((BM / 64 + 1) * kWG, 1) int8_conv3d_direct_ker
 #ifndef PART_NO_FILL
         fill_items(rows * quads, ft, kFillers, 16,
                    [&](int it, int& src, int& ch, uint8_t*& dst) {
+                     // x-row (plane zp, row y) of the padded halo
                      const int q = it % quads, xr = it / quads;
-                     int cell;
-                     if (dg.w8) {  // x-row (plane zp, row y) of the padded halo
-                       const int zp = xr / 8, y = xr % 8, z = z0 - sh.pad + zp;
-                       src = z >= 0 && z < sh.D ? b * sh.S + (z * 8 + y) * 8 : M;
-                       cell = (zp * dg.Hp + y + sh.pad) * dg.Wp + sh.pad;
-                     } else {
-                       src = static_cast<int>(m0) + xr * 8;
-                       cell = xr * 8;
-                     }
+                     const int zp = xr / 8, y = xr % 8, z = z0 - sh.pad + zp;
+                     src = z >= 0 && z < sh.D ? b * sh.S + (z * 8 + y) * 8 : M;
+                     const int cell = (zp * dg.Hp + y + sh.pad) * dg.Wp + sh.pad;
                      ch = c * dg.cw + q * 4;
                      dst = hb + (q / 4) * dg.lbo + cell * 16 + (q % 4) * 4;
                    },
@@ -737,17 +618,17 @@ __global__ void __launch_bounds__((BM / 64 + 1) * kWG, 1) int8_conv3d_direct_ker
     // bytes, one halo cell.  The tap (kd, kh, kw) steps along its window
     // without divisions: the next kw is the next cell, the next kh the next
     // row, the next kd the next plane.
-    const int sbo = dg.w8 ? dg.Wp * 16 : 128;
+    const int sbo = dg.Wp * 16;
     const uint64_t a_group2 = static_cast<uint64_t>(2 * dg.lbo) >> 4;  // K step of 32 bytes
     const uint64_t b0 = sw64_desc(sB);
-    const int row_skip = dg.w8 ? dg.Wp - sh.k : 0, plane_skip = dg.w8 ? (dg.Hp - sh.k) * dg.Wp : 0;
+    const int row_skip = dg.Wp - sh.k, plane_skip = (dg.Hp - sh.k) * dg.Wp;
     int stage = 0, oldest = 0, pending = 0;  // pending: committed, not released
     uint32_t phase = 0;
     for (int c = 0; c < dg.n_chunks; ++c) {
       const int buf = c & 1;
       mbar_wait(&hfull[buf], (c >> 1) & 1);
       const uint64_t a0 = plain_desc(halo + buf * dg.halo_bytes, dg.lbo, sbo);
-      int cell = dg.w8 ? wg * dg.Hp * dg.Wp : wg * 64, kh = 0, kw = 0;
+      int cell = wg * dg.Hp * dg.Wp, kh = 0, kw = 0;
       for (int t = 0; t < sh.taps; t += kTapsPerStage) {
         mbar_wait(&bfull[stage], phase);
         wgmma_fence();
@@ -795,35 +676,17 @@ __global__ void __launch_bounds__((BM / 64 + 1) * kWG, 1) int8_conv3d_direct_ker
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, which the process already has
-// loaded (PyTorch's), so the library links against the runtime only.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
-    return h == nullptr ? nullptr
-                        : reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-// The direct kernel's geometry for a bm-row tile, or w8 = -1 where it does
-// not apply (then the gather kernel runs).
+// The direct kernel's geometry for a bm-row tile, ok = 0 where it does not
+// apply (ops/kernels/int8_cuda.py::kernel_for names the gather kernel there).
 Direct direct_geometry(int bm, int bn, const Shape& sh) {
   Direct dg;
-  dg.w8 = -1;
-  const bool w8 = sh.k > 1 && sh.H == 8 && sh.W == 8 && sh.D % (bm / 64) == 0;
-  if (sh.cin_p % 32 != 0 || !(sh.k == 1 || w8)) return dg;
-  dg.w8 = w8 ? 1 : 0;
+  dg.ok = 0;
+  if (sh.cin_p % 32 != 0 || sh.k == 1 || sh.H != 8 || sh.W != 8 || sh.D % (bm / 64) != 0)
+    return dg;
+  dg.ok = 1;
   dg.P = bm / 64 + sh.k - 1;
   dg.Hp = dg.Wp = 8 + sh.k - 1;
-  const int n_cells = w8 ? dg.P * dg.Hp * dg.Wp : bm;
+  const int n_cells = dg.P * dg.Hp * dg.Wp;
   // 8 n + 1 cells between groups, so that the groups' words fall in other banks
   dg.lbo = ((n_cells + 6) / 8 * 8 + 1) * 16;
   dg.cw = sh.cin_p < kBKD ? sh.cin_p : kBKD;
@@ -834,7 +697,7 @@ Direct direct_geometry(int bm, int bn, const Shape& sh) {
   const long long stage_bytes = static_cast<long long>(kTapsPerStage) * bn * kBKD;
   dg.stages = static_cast<int>(left / stage_bytes < kMaxRing ? left / stage_bytes : kMaxRing);
   // the epilogue's [bn][bm + 8] bf16 tile is staged in the ring
-  if (dg.stages * stage_bytes < bn * (bm + 8) * 2 || dg.stages < 2) dg.w8 = -1;
+  if (dg.stages * stage_bytes < bn * (bm + 8) * 2 || dg.stages < 2) dg.ok = 0;
   return dg;
 }
 
@@ -961,14 +824,16 @@ extern "C" {
 // {64, 128}, bn in {32, 64, 128}).  x bf16 [B, C, D, H, W]; w_q int8
 // [cout, k^3, cin_p]; x_amax, the float32 bound the scale comes from;
 // s_w, bias float32 [cout]; out bf16 [B, cout, D, H, W]; out_amax a
-// float32 the caller zeroed, or null.  Returns 0 on success, a CUDA error
-// code, 1000 + the CUresult of a failed weight tensor map, or 2000 where
-// the tile would need more shared memory than a block has; allocates
-// nothing and does not synchronise.  x and w_q 16-byte aligned.
+// float32 for max|out| (zeroed here, on the stream), or null; `direct` 1
+// for the direct kernel, 0 for the gather kernel.  Returns 0 on success, a
+// CUDA error code, 1000 + the CUresult of a failed weight tensor map, 2000
+// where the tile would need more shared memory than a block has, or 3000
+// where the direct kernel does not take the shape; allocates nothing and
+// does not synchronise.  x and w_q 16-byte aligned.
 int int8_conv3d_launch(const void* x, const void* w_q, const void* x_amax,
                        const void* s_w, const void* bias, void* out, void* out_amax,
                        int relu, int B, int C, int D, int H, int W, int cin_p, int cout,
-                       int k, int pad, int bm, int bn, void* stream) {
+                       int k, int pad, int bm, int bn, int direct, void* stream) {
   const bool cin_ok = cin_p == 16 || cin_p == 32 || cin_p == 64 ||
                       (cin_p > 0 && cin_p % 128 == 0);
   if (B < 0 || C <= 0 || C > cin_p || D <= 0 || H <= 0 || W <= 0 || cout <= 0 ||
@@ -978,13 +843,17 @@ int int8_conv3d_launch(const void* x, const void* w_q, const void* x_amax,
   const Shape sh = make_shape(B, C, D, H, W, cin_p, cout, k, pad, bm);
 
   const Direct dg = direct_geometry(bm, bn, sh);
-  const bool direct = dg.w8 >= 0;
+  if (direct && !dg.ok) return kGeometryError;
 
   CUtensorMap map;
   const int res = weight_map(&map, w_q, static_cast<long long>(sh.taps) * cin_p, cout, bn, direct);
   if (res != 0) return res;
 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_amax != nullptr) {
+    const cudaError_t err = cudaMemsetAsync(out_amax, 0, sizeof(float), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   if (direct) {
     if (bm == 128 && bn == 128)
       return launch_direct<128, 128>(map, x, x_amax, s_w, bias, out, out_amax, relu, sh, dg, s);
@@ -1017,6 +886,7 @@ int int8_conv3d_launch(const void* x, const void* w_q, const void* x_amax,
 
 const char* cuda_error_string(int code) {
   if (code == kSmemError) return "the tile needs more shared memory than a block has";
+  if (code == kGeometryError) return "the direct kernel does not take this shape";
   if (code >= kTensorMapError) return "cuTensorMapEncodeTiled failed for the weights";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -472,7 +472,8 @@ def serving_stats(model, cfg, rows: np.ndarray) -> dict:
 
 def kernel_launches() -> dict:
     """The CUDA kernels' launch counts so far, by kernel."""
-    return {**mups_cuda.KERNEL.launches, **int8_cuda.KERNEL.launches}
+    return {**mups_cuda.KERNEL.launches,
+            **{k: v for lib in int8_cuda.KERNELS for k, v in lib.launches.items()}}
 
 
 class RankOutputs:

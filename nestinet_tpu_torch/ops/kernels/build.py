@@ -1,19 +1,21 @@
 """Build the port's CUDA kernels with nvcc at first use and load them.
 
-Libraries: `csrc/mups_kernel.cu` (the two MuPS kernels, `mups_cuda.py`) and
-`csrc/int8_conv.cu` (the fused int8 implicit-GEMM conv, `int8_cuda.py`,
-which finds libcuda's `cuTensorMapEncodeTiled` with dlopen).  Each
-`csrc/<name>.cu` exposes a plain C interface and is compiled on its own
-into a shared library for sm_90a (no PyTorch headers, so a build takes
-seconds):
+Libraries: `csrc/mups_kernel.cu` (the two MuPS kernels, `mups_cuda.py`),
+`csrc/int8_conv.cu` (the fused int8 implicit-GEMM convs, k > 1) and
+`csrc/int8_gemm.cu` (the int8 GEMM of the k = 1 layers), both bound by
+`int8_cuda.py` and both finding libcuda's `cuTensorMapEncodeTiled` with
+dlopen; the int8 sources share `csrc/hopper.cuh`.  Each `csrc/<name>.cu`
+exposes a plain C interface and is compiled on its own into a shared
+library for sm_90a (no PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -ldl -o _build/<name>-<hash>.so csrc/<name>.cu
 
 The library lands in `nestinet_tpu_torch/_build/` (listed in .gitignore),
-named by a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is.  Only sources in the package are
-built.  A failed build raises; nothing falls back to the plain version.
+named by a hash of the source, the headers of `csrc/` and the flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it is.
+Only sources in the package are built.  A failed build raises; nothing
+falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -78,8 +80,11 @@ class CudaKernel:
         self._lock = threading.Lock()
 
     def library_path(self) -> str:
-        with open(self.source, "rb") as f:
-            digest = hashlib.sha256(f.read())
+        digest = hashlib.sha256()
+        headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+        for path in [self.source] + [os.path.join(CSRC_DIR, h) for h in headers]:
+            with open(path, "rb") as f:
+                digest.update(f.read())
         digest.update(" ".join(NVCC_FLAGS).encode())
         return os.path.join(BUILD_DIR, f"{self.name}-{digest.hexdigest()[:16]}.so")
 

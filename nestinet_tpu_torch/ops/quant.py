@@ -20,11 +20,13 @@ of the kernel holds whole taps or one 128-channel slice of a tap.  Zero
 channels add nothing to the sum.  Activations stay bfloat16 NCDHW, the
 layout of the blocks around the kernel, in and out.
 
-`int8_conv3d_fused` runs the hand-written CUDA kernel (`csrc/int8_conv.cu`)
-on a CUDA tensor: it quantizes the bfloat16 activation as it loads it, so
-the int8 activation never exists in device memory, and can apply ReLU and
-return max|out| (one launch for conv + ReLU + bound where BatchNorm is
-folded, as JAX fuses it).  On a CPU tensor it runs the plain version,
+`int8_conv3d_fused` runs a hand-written CUDA kernel on a CUDA tensor: the
+int8 GEMM (`csrc/int8_gemm.cu`) at k = 1, the implicit-GEMM convs
+(`csrc/int8_conv.cu`) above (`kernels/int8_cuda.py::kernel_for`).  Both
+quantize the bfloat16 activation as they load it, so the int8 activation
+never exists in device memory, and can apply ReLU and return max|out| (one
+launch for conv + ReLU + bound where BatchNorm is folded, as JAX fuses
+it).  On a CPU tensor it runs the plain version,
 `int8_conv3d_fused_reference`: `activation_scale`, `quantize_activation`
 and `int8_conv3d_reference` (+ ReLU + amax), composed; that device check is
 the only place that chooses between the two.  The plain version is exact:
@@ -157,8 +159,8 @@ def conv3d_int8(x, w_q, s_w, b, kernel: int, x_amax=None) -> torch.Tensor:
 
 def linear_int8(x, w_q, s_w, b, x_amax=None, *, relu: bool = False) -> torch.Tensor:
     """Quantized drop-in for x @ w + b (JAX `linear_int8`), + ReLU if asked:
-    x bfloat16 [B, cin] -> bfloat16 [B, cout], through the conv with
-    D = H = W = 1 and a 1^3 kernel."""
+    x bfloat16 [B, cin] -> bfloat16 [B, cout], as the k = 1 conv with
+    D = H = W = 1 (the int8 GEMM on the card)."""
     out, _ = int8_conv3d_fused(x.reshape(x.shape[0], -1, 1, 1, 1), w_q, s_w, b, 1, x_amax,
                                relu=relu)
     return out.view(x.shape[0], -1)

@@ -75,11 +75,10 @@ def serve(tree: str, work: str, label: str) -> None:
 
     import nestinet_tpu_torch
     from nestinet_tpu_torch.infer.device_pipeline import predict_shapes_device
-    from nestinet_tpu_torch.ops.kernels import int8_cuda, mups_cuda
-    from nestinet_tpu_torch.ops.kernels.build import build_all
 
+    # each path's warm-up builds the kernels it needs before the timed run;
+    # nothing here names a kernel, so that any checkout of the port serves
     print(f"{label}: {os.path.dirname(nestinet_tpu_torch.__file__)}", flush=True)
-    build_all((mups_cuda.KERNEL, int8_cuda.KERNEL))
     data, run = os.path.join(work, "data"), os.path.join(work, "run")
     rates = {}
     for name, dtype, fold in PATHS:

@@ -10,11 +10,17 @@
   * the plain kernel twin is an exact integer conv, held to a NumPy int64
     one, asymmetric SAME padding included;
   * the activation scale and the ActQ bounds the blocks forward;
-  * the CUDA wrapper refuses CPU tensors (the kernel itself is held to the
-    plain version on the card by `chip_smoke.py`).
+  * the CUDA wrapper refuses CPU tensors (the kernels themselves are held
+    to the plain version on the card by `chip_smoke.py`);
+  * NumPy models of the kernels' index arithmetic (the gather kernel's
+    halo and tap table, the direct kernel's descriptors, the GEMM's TMA
+    boxes, ldmatrix fragments and split-K cluster sum) equal the plain
+    version bit for bit, and the dispatch sends every k = 1 layer of the
+    flagship to the GEMM.
 """
 
 import dataclasses
+import os
 
 import haiku as hk
 import jax
@@ -251,12 +257,13 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     x = torch.zeros((1, 16, 2, 2, 2), dtype=torch.bfloat16)
     w_q = torch.zeros((4, 1, 16), dtype=torch.int8)
     args = (x, w_q, torch.ones(4), torch.zeros(4), 1)
-    before = dict(int8_cuda.KERNEL.launches)
+    before = [dict(k.launches) for k in int8_cuda.KERNELS]
     with pytest.raises(ValueError, match="CUDA"):
         int8_cuda.int8_conv3d_cuda(*args, torch.tensor(1.0))
     y, amax = quant.int8_conv3d_fused(*args, torch.tensor(1.0), want_amax=True)
     assert y.shape == (1, 4, 2, 2, 2) and amax.item() == 0.0
-    assert int8_cuda.KERNEL.launches == before == {"int8_conv3d": 0}
+    assert [k.launches for k in int8_cuda.KERNELS] == before == [{"int8_conv3d": 0},
+                                                                 {"int8_gemm": 0}]
 
 
 def test_quantized_model_serves_with_the_same_manager_batch(rng):
@@ -354,30 +361,41 @@ def test_packed_widths_fit_the_kernel(cin):
     assert cin_p - cin < (16 if cin <= 16 else cin if cin <= 64 else 128)
 
 
-@pytest.mark.parametrize("M,cout,want", [
-    (131072, 128, (128, 128)), (131072, 21, (128, 32)), (131072, 42, (128, 64)),
-    (37 * 512, 128, (128, 128)), (37 * 64, 256, (64, 64)), (37 * 8, 512, (64, 32)),
-    (256, 1024, (64, 32)), (37, 1024, (64, 32)), (37, 3, (64, 32)), (256, 7, (64, 32)),
+@pytest.mark.parametrize("M,cout,cin_p,want", [
+    (131072, 128, 0, (128, 128)), (131072, 21, 0, (128, 32)), (131072, 42, 0, (128, 64)),
+    (37 * 512, 128, 0, (128, 128)), (37 * 64, 256, 0, (64, 64)), (37 * 8, 512, 0, (64, 32)),
+    (256, 1024, 1536, (64, 8)), (37, 1024, 1536, (64, 8)), (37, 3, 64, (32, 1)),
+    (256, 7, 128, (32, 2)),
 ])
-def test_tile_shape_fills_the_card_from_the_shape(M, cout, want):
+def test_tile_shape_fills_the_card_from_the_shape(M, cout, cin_p, want):
+    """The conv kernels' (BM, BN) for their shapes; the linears (cin_p
+    given), which the GEMM takes now, get its (BN, splits): K split over a
+    cluster while the tiles leave SMs idle, then BN narrowed."""
     sms = 132  # an H100 SXM
-    bm, bn = int8_cuda.tile_shape(M, cout, sms)
-    assert (bm, bn) == want
-    blocks = -(-M // bm) * -(-cout // bn)
-    assert blocks >= sms or (bm, bn) == (64, 32)
+    if not cin_p:
+        bm, bn = int8_cuda.tile_shape(M, cout, sms)
+        assert (bm, bn) == want
+        blocks = -(-M // bm) * -(-cout // bn)
+        assert blocks >= sms or (bm, bn) == (64, 32)
+        return
+    assert int8_cuda.kernel_for(cin_p, 1, 1, 1, cin_p, 1, 64, 32) == "gemm"
+    bn, splits = int8_cuda.gemm_plan(M, cout, cin_p, sms)
+    assert (bn, splits) == want
+    blocks = -(-M // 128) * -(-cout // bn) * splits
+    assert blocks >= sms or bn <= 64 and (splits == 8 or 2 * splits > -(-cin_p // 64))
 
 
 def _kernel_quantize(v, s_x):
-    """The kernel's quantize, in float32: the reciprocal's product clamped to
-    [-128, 128], rounded half to even by adding and subtracting 1.5 * 2^23,
+    """The kernels' quantize, in float32: the reciprocal's product clamped to
+    [-127, 127], rounded half to even by adding and subtracting 1.5 * 2^23,
     and the exact quotient only within 2^-14 of a tie."""
     f32 = np.float32
     inv = f32(1) / s_x
-    p = np.clip((v * inv).astype(f32), f32(-128), f32(128))
+    p = np.clip((v * inv).astype(f32), f32(-127), f32(127))
     t = (p + f32(12582912.0)).astype(f32)
     r = (t - f32(12582912.0)).astype(f32)
     near = np.abs((p - r).astype(f32)) > f32(0.5) - f32(2.0 ** -14)
-    q = np.clip(t.view(np.int32) - 0x4B400000, -127, 127).astype(f32)
+    q = (t.view(np.int32) - 0x4B400000).astype(f32)
     exact = np.clip(np.rint((v / s_x).astype(f32)), -127, 127)
     return np.where(near, exact, q)
 
@@ -499,23 +517,21 @@ def test_the_kernels_index_arithmetic_computes_the_conv(rng, B, cin, cout, k, r)
         assert torch.equal(got64, want)
 
 
-def direct_geometry(bm, cin_p, k, D, H, W):
+def direct_geometry(bm, bn, cin_p, k, D, H, W):
     """The direct kernel's geometry (`csrc/int8_conv.cu::direct_geometry`),
-    or None where the gather kernel runs (the shared-memory check aside)."""
-    w8 = k > 1 and H == 8 and W == 8 and D % (bm // 64) == 0
-    if cin_p % 32 or not (k == 1 or w8):
+    or None where it does not apply."""
+    if int8_cuda.kernel_for(cin_p, D, H, W, cin_p, k, bm, bn) != "direct":
         return None
     P, Hp = bm // 64 + k - 1, 8 + k - 1
-    n_cells = P * Hp * Hp if w8 else bm
-    lbo = ((n_cells + 6) // 8 * 8 + 1) * 16
+    lbo = ((P * Hp * Hp + 6) // 8 * 8 + 1) * 16
     cw = min(cin_p, 64)
-    return dict(w8=w8, P=P, Hp=Hp, Wp=Hp, lbo=lbo, cw=cw, n_chunks=cin_p // cw,
+    return dict(P=P, Hp=Hp, Wp=Hp, lbo=lbo, cw=cw, n_chunks=cin_p // cw,
                 halo_bytes=cw // 16 * lbo)
 
 
 def emulate_direct(x, w_q, s_w, b, k, x_amax, relu, bm, bn):
     """The direct kernel in NumPy: the halo bytes as the fillers write them
-    (16-channel groups `lbo` apart, 16 bytes per cell, the 8 x 8 grids
+    (16-channel groups `lbo` apart, 16 bytes per cell, the 8 x 8 grid
     zero-padded), and A read through the no-swizzle descriptor: row r, K
     byte j of a k32 step at start + (r // 8) sbo + (r % 8) 16 + (j // 16)
     lbo + j % 16, the start at the tap's cell and the step's group."""
@@ -524,28 +540,24 @@ def emulate_direct(x, w_q, s_w, b, k, x_amax, relu, bm, bn):
     M = B * S
     cout, taps, cin_p = w_q.shape
     pad = (k - 1) // 2
-    g = direct_geometry(bm, cin_p, k, D, H, W)
+    g = direct_geometry(bm, bn, cin_p, k, D, H, W)
     assert g is not None
     s_x = np.float32(max(np.float32(x_amax), np.float32(1e-12))) / np.float32(127)
     xf = x.float().numpy().reshape(B, C, S)
     wk = w_q.numpy().reshape(cout, taps * cin_p).astype(np.int64)
     cw, lbo = g["cw"], g["lbo"]
-    sbo = g["Wp"] * 16 if g["w8"] else 128
+    sbo = g["Wp"] * 16
     acc = np.zeros((M, cout), np.int64)
     rows = np.arange(bm)
     for m0 in range(0, M, bm):
         bb, z0 = m0 // S, (m0 % S) // 64
         for c in range(g["n_chunks"]):
             halo = np.zeros(g["halo_bytes"], np.int64)
-            n_runs = g["P"] * 8 if g["w8"] else bm // 8
-            for xr in range(n_runs):
-                if g["w8"]:
-                    zp, y = divmod(xr, 8)
-                    z = z0 - pad + zp
-                    src = bb * S + (z * 8 + y) * 8 if 0 <= z < D else M
-                    cell = (zp * g["Hp"] + y + pad) * g["Wp"] + pad
-                else:
-                    src, cell = m0 + xr * 8, xr * 8
+            for xr in range(g["P"] * 8):
+                zp, y = divmod(xr, 8)
+                z = z0 - pad + zp
+                src = bb * S + (z * 8 + y) * 8 if 0 <= z < D else M
+                cell = (zp * g["Hp"] + y + pad) * g["Wp"] + pad
                 for e in range(8):
                     if src + e >= M:
                         continue
@@ -555,15 +567,14 @@ def emulate_direct(x, w_q, s_w, b, k, x_amax, relu, bm, bn):
                         lc = ch - c * cw
                         halo[(lc // 16) * lbo + (cell + e) * 16 + lc % 16] = q
             for t in range(taps):
-                if g["w8"]:
-                    kd, kh, kw = t // (k * k), (t // k) % k, t % k
+                kd, kh, kw = t // (k * k), (t // k) % k, t % k
                 for kk in range(cw // 32):
                     k0 = t * cin_p + c * cw + 32 * kk
                     bt = np.zeros((cout, 32), np.int64)
                     bt[:, :max(0, min(32, taps * cin_p - k0))] = wk[:, k0:k0 + 32]
                     at = np.zeros((bm, 32), np.int64)
                     for wg in range(bm // 64):
-                        cell = (((wg + kd) * g["Hp"] + kh) * g["Wp"] + kw) if g["w8"] else wg * 64
+                        cell = ((wg + kd) * g["Hp"] + kh) * g["Wp"] + kw
                         start = cell * 16 + 2 * kk * lbo
                         r = rows[:64]
                         for j in range(32):
@@ -579,16 +590,40 @@ def emulate_direct(x, w_q, s_w, b, k, x_amax, relu, bm, bn):
     return y.reshape(B, S, cout).permute(0, 2, 1).reshape(B, cout, D, H, W)
 
 
+@pytest.mark.parametrize("cin_p,k,bm,bn,want", [
+    (64, 7, 128, 128, "gather"),  # the halos leave room for one B stage
+    (1536, 7, 128, 128, "gather"), (1536, 7, 128, 64, "direct"), (64, 7, 64, 32, "direct"),
+    (32, 7, 128, 128, "direct"),
+    (1536, 5, 128, 128, "direct"), (768, 3, 128, 128, "direct"), (64, 4, 64, 32, "direct"),
+])
+def test_the_direct_kernel_is_named_only_where_its_tile_fits(cin_p, k, bm, bn, want):
+    """On an 8^3 grid the dispatch names the direct kernel only where its
+    two halos, a B ring of two stages and the epilogue's tile fit in shared
+    memory, the condition `direct_geometry` checks in `csrc/int8_conv.cu`
+    (whose constants `direct_fits` repeats); a k = 7 conv at a wide tile
+    goes to the gather kernel."""
+    import re
+
+    assert int8_cuda.kernel_for(cin_p, 8, 8, 8, cin_p, k, bm, bn) == want
+    csrc = os.path.join(os.path.dirname(int8_cuda.__file__), "..", "..", "csrc")
+    with open(os.path.join(csrc, "hopper.cuh")) as f:
+        assert re.search(rf"kSmemMax = {int8_cuda.SMEM_MAX};", f.read())
+    with open(os.path.join(csrc, "int8_conv.cu")) as f:
+        src = f.read()
+    assert re.search(rf"kMaxRing = {int8_cuda.DIRECT_MAX_RING};", src)
+    assert re.search(rf"#define PART_TAPS_PER_STAGE {int8_cuda.DIRECT_TAPS_PER_STAGE}\n", src)
+    assert re.search(r"kBKD = 64;", src)
+
+
 @pytest.mark.parametrize("B,cin,cout,k,r,bm", [
-    (1, 42, 21, 3, 8, 128), (1, 60, 24, 5, 8, 64), (2, 20, 16, 1, 4, 64), (37, 130, 8, 1, 1, 64),
-    (1, 20, 8, 2, 8, 128),
+    (1, 42, 21, 3, 8, 128), (1, 60, 24, 5, 8, 64), (1, 20, 8, 2, 8, 128),
 ])
 def test_the_direct_kernels_halo_and_descriptors_compute_the_conv(rng, B, cin, cout, k, r, bm):
     """The direct kernel's halo layout and A descriptors (no swizzle: core
     matrices of 8 cells x 16 bytes, `sbo` between rows of cells, `lbo`
     between 16-channel groups), emulated in NumPy, equal the plain version
     bit for bit: the padded 8 x 8 grids (odd and even kernels, BM 64 and
-    128) and the 1x1x1 convs and linears."""
+    128).  Its 1x1x1 cases moved to the GEMM's test below."""
     x = _bf16_case(rng, B, cin, r)
     w_q, s_w, b = _packed_weights(rng, cin, cout, k)
     x_amax = x.abs().amax().float() * 1.1
@@ -597,15 +632,218 @@ def test_the_direct_kernels_halo_and_descriptors_compute_the_conv(rng, B, cin, c
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("switch", ["PART_NO_FILL", "PART_NO_MMA", "PART_NO_B",
-                                    "PART_IN_FLIGHT", "PART_TAPS_PER_STAGE"])
-def test_kernel_parts_script_switches_the_current_source(switch):
+def byte_perm(x, y, sel):
+    """CUDA's __byte_perm on arrays of uint32: byte n of the result is byte
+    (sel >> 4 n) & 7 of the eight bytes of x (0-3) and y (4-7)."""
+    src = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(src[(sel >> (4 * n)) & 7] << (8 * n) for n in range(4))
+
+
+def tma_box(xf, sb, mh, ks, B, C, S):
+    """The bf16 activation box one warpgroup's TMA load leaves in shared
+    memory (4096 values, indexed by byte offset // 2), zero outside the
+    tensor: a linear's 64 rows x 64 channels from row mh, else 64 // sb
+    samples x 64 channels x sb cells from cell mh; laid out densely, inner
+    dimension first, then the 128-byte swizzle (16-byte chunk bits 4-6 XOR
+    bits 7-9 of the offset) where the inner run is 128 bytes."""
+    box = np.zeros(4096, np.float32)
+    c = 64 * ks + np.arange(64)
+    for i in range(4096):
+        if sb == 0:
+            r, cc = divmod(i, 64)
+            v = xf[(mh + r) // S, c[cc], 0] if mh + r < B and c[cc] < C else 0.0
+        else:
+            smp, rest = divmod(i, 64 * sb)
+            cc, cell = divmod(rest, sb)
+            b, p = divmod(mh + smp * sb, S) if sb < 64 else divmod(mh, S)
+            p += cell
+            v = xf[b, c[cc], p] if b < B and c[cc] < C else 0.0
+        off = 2 * i
+        if sb in (0, 64):
+            off ^= ((off >> 7) & 7) << 4
+        box[off // 2] = v
+    return box
+
+
+def a_mmajor(sb, m, c):
+    """`int8_gemm.cu::a_mmajor`: the byte offset of cell row m, channel c."""
+    if sb == 64:
+        return c * 128 + (((m >> 3) ^ (c & 7)) << 4) + (m & 7) * 2
+    smp = m // sb
+    return ((smp * 64 + c) * sb + m - smp * sb) * 2
+
+
+def a_kmajor(r, c):
+    """`int8_gemm.cu::a_kmajor`: a linear's row r, channel c."""
+    return r * 128 + (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2
+
+
+def gemm_a_tile(box, sb, s_x):
+    """The 64 x 64 int8 A of one warpgroup's stage as its 128 threads hold
+    it: per warp and 32-byte K step, each lane's ldmatrix.trans row address
+    (M-major) or four 8-byte loads (K-major), the values quantized, packed
+    with byte_perm, then placed by wgmma's register layout (register t of
+    lane (g, q): row g + 8 (t & 1), bytes 4 q + 16 (t >> 1) + 0..3)."""
+    lane = np.arange(32)
+    g, q = lane // 4, lane % 4
+    quant8 = lambda v: _kernel_quantize(v.astype(np.float32), s_x).astype(np.int64) & 0xFF
+    pair = lambda lo, hi: quant8(lo) | (quant8(hi) << 8)
+    a = np.zeros((64, 64), np.int64)
+    for warp in range(4):
+        for kk in range(2):
+            regs = np.zeros((4, 32), np.int64)
+            if sb == 0:
+                for t in range(4):
+                    off = np.array([a_kmajor(16 * warp + gi + 8 * (t & 1),
+                                             32 * kk + 16 * (t >> 1) + 4 * qi)
+                                    for gi, qi in zip(g, q)]) // 2
+                    v = [box[off + e] for e in range(4)]
+                    regs[t] = byte_perm(pair(v[0], v[1]), pair(v[2], v[3]), 0x5410)
+            else:
+                i, j = lane // 8, lane % 8
+                jq = j // 2
+                ch = 4 * jq + (j & 1) + 2 * ((i & 1) ^ (jq >> 1)) + 16 * (i >> 1)
+                sel = np.where(q >= 2, 0x1054, 0x5410)
+                for h in range(2):
+                    rows = np.array([a_mmajor(sb, 16 * warp + 8 * h, 32 * kk + c)
+                                     for c in ch]) // 2  # lane l's 8 values
+                    # .trans: thread (g, q) gets column g of rows 2q, 2q + 1 of matrix i
+                    u = [pair(box[rows[8 * mi + 2 * q] + g], box[rows[8 * mi + 2 * q + 1] + g])
+                         for mi in range(4)]
+                    for t, (u0, u1) in ((h, (u[0], u[1])), (2 + h, (u[2], u[3]))):
+                        regs[t] = np.array([byte_perm(int(x0), int(x1), int(sl))
+                                            for x0, x1, sl in zip(u0, u1, sel)])
+            for t in range(4):
+                for e in range(4):
+                    byte = (regs[t] >> (8 * e)) & 0xFF
+                    a[16 * warp + g + 8 * (t & 1), 32 * kk + 4 * q + 16 * (t >> 1) + e] = \
+                        np.where(byte > 127, byte - 256, byte)
+    return a
+
+
+def emulate_gemm(x, w_q, s_w, b, x_amax, relu, bn, splits):
+    """The int8 GEMM kernel in NumPy, block by block of the (M / 128, cout /
+    BN, splits) grid: each cluster rank's 64-channel K stages, the two
+    warpgroups' TMA boxes and fragments (`tma_box`, `gemm_a_tile`) against
+    B as the TMA box of w_q (zero past cin_p and cout), the int32 partial
+    tiles, then each rank's runs of 8 rows summed over the cluster (the
+    runs must cover the tile once), the float32 epilogue, ReLU, max|out|."""
+    B, C = x.shape[:2]
+    S = int(np.prod(x.shape[2:]))
+    M = B * S
+    cout, _, cin_p = w_q.shape
+    stages = -(-cin_p // 64)
+    sb = 0 if S == 1 else min(S, 64)
+    s_x = np.float32(max(np.float32(x_amax), np.float32(1e-12))) / np.float32(127)
+    xf = x.float().numpy().reshape(B, C, S)
+    wk = np.zeros((-(-cout // bn) * bn, stages * 64), np.int64)
+    wk[:cout, :cin_p] = w_q.numpy()[:, 0, :]
+    acc = np.zeros((M, cout), np.int64)
+    for m0 in range(0, M, 128):
+        for n0 in range(0, cout, bn):
+            parts = []
+            for rank in range(splits):
+                part = np.zeros((128, bn), np.int64)
+                for ks in range(rank * stages // splits, (rank + 1) * stages // splits):
+                    bt = wk[n0:n0 + bn, 64 * ks:64 * ks + 64]
+                    for wg in range(2):
+                        box = tma_box(xf, sb, m0 + 64 * wg, ks, B, C, S)
+                        part[64 * wg:64 * wg + 64] += gemm_a_tile(box, sb, s_x) @ bt.T
+                parts.append(part)
+            # each rank sums its runs of 8 rows of one column, enumerated
+            # columns first for a linear, rows first otherwise
+            covered = np.zeros((128, bn), np.int64)
+            tile = np.zeros((128, bn), np.int64)
+            runs = 128 * bn // 8
+            for rank in range(splits):
+                for u in range(rank * runs // splits, (rank + 1) * runs // splits):
+                    col, row = (u % bn, u // bn * 8) if S == 1 else (u // 16, u % 16 * 8)
+                    at = (slice(row, row + 8), col)
+                    covered[at] += 1
+                    tile[at] = sum(p[at] for p in parts)
+            assert (covered == 1).all()
+            rows, cols = min(128, M - m0), min(bn, cout - n0)
+            acc[m0:m0 + rows, n0:n0 + cols] = tile[:rows, :cols]
+    scale = (s_w.numpy() * s_x).astype(np.float32)
+    y = (acc.astype(np.float32) * scale).astype(np.float32) + b.numpy()
+    y = torch.from_numpy(y.astype(np.float32)).to(torch.bfloat16)
+    if relu:
+        y = torch.nn.functional.relu(y)
+    y = y.reshape(B, S, cout).permute(0, 2, 1).reshape((B, cout) + tuple(x.shape[2:]))
+    return y, y.abs().amax().float()
+
+
+@pytest.mark.parametrize("B,cin,cout,r,kernel", [
+    (2, 20, 16, 4, "gemm"), (37, 130, 8, 1, "gather"),  # the direct kernel's 1x1x1 cases
+    (3, 60, 40, 4, "gemm"), (5, 126, 7, 2, "gemm"), (37, 200, 3, 2, "gemm"),
+    (1, 20, 12, 8, "gemm"), (37, 1536, 7, 1, "gemm"), (130, 64, 3, 1, "gemm"),
+    (3, 8, 4, 2, "gemm"), (2, 8, 4, 3, "gather"), (3, 16, 300, 1, "gemm"),
+])
+def test_the_gemm_kernels_boxes_and_fragments_compute_the_conv(rng, B, cin, cout, r, kernel):
+    """The k = 1 layers: the int8 GEMM's index arithmetic, emulated in NumPy
+    (`emulate_gemm`) at the tile plan the wrapper picks for an H100, equals
+    the plain version bit for bit, outputs and max|out|: boxes across
+    samples (r = 2, 4: fewer cells than the 128-row tile), the 64-cell
+    swizzled box (r = 8), a linear's K-major box (r = 1), the zero tail of
+    channels (cin 20, 60, 126, 200, 8 in cin_p 16), the split-K cluster sum
+    (K = 1536 over 8 blocks), partial M and N tiles, cout 3, 7 and 300.
+    Where the TMA map cannot take the activation (a linear with cin % 8,
+    a 3^3 grid) the dispatch names the gather kernel, and its model holds."""
+    x = _bf16_case(rng, B, cin, r)
+    w_q, s_w, b = _packed_weights(rng, cin, cout, 1)
+    x_amax = x.abs().amax().float() * 1.1
+    want, want_amax = quant.int8_conv3d_fused_reference(x, w_q, s_w, b, 1, x_amax, relu=True,
+                                                        want_amax=True)
+    M, cin_p = B * r ** 3, w_q.shape[-1]
+    bm, bn = int8_cuda.tile_shape(M, cout, 132)  # an H100 SXM's SMs
+    assert int8_cuda.kernel_for(cin, r, r, r, cin_p, 1, bm, bn) == kernel
+    if kernel == "gather":
+        got, got_amax = emulate_kernel(x, w_q, s_w, b, 1, x_amax.item(), True, bm, bn)
+    else:
+        bn, splits = int8_cuda.gemm_plan(M, cout, cin_p, 132)
+        got, got_amax = emulate_gemm(x, w_q, s_w, b, x_amax.item(), True, bn, splits)
+    assert torch.equal(got, want) and got_amax.item() == want_amax.item()
+
+
+@pytest.mark.parametrize("B", [256, 64, 37, 1])
+def test_every_flagship_k1_layer_runs_the_gemm(B):
+    """The dispatch at the flagship's and both expert widths' layer shapes
+    (`chip_smoke.py::int8_layer_shapes`): every 1x1x1 conv and linear goes
+    to the GEMM, every k > 1 conv to the conv kernels; the GEMM's plan is
+    one it launches (BN 32-256, 1-8 blocks a cluster, no more than K's
+    stages)."""
+    import chip_smoke
+
+    convs, fcs = chip_smoke.int8_layer_shapes()
+    for cin, cout, k, r in convs + [(a, b, 1, 1) for a, b in fcs]:
+        cin_p = quant.padded_channels(cin)
+        M = B * r ** 3
+        bm, bn = int8_cuda.tile_shape(M, cout, 132)
+        which = int8_cuda.kernel_for(cin, r, r, r, cin_p, k, bm, bn)
+        assert which == "gemm" if k == 1 else which in ("direct", "gather"), (cin, cout, k, r)
+        if k == 1:
+            bn, splits = int8_cuda.gemm_plan(M, cout, cin_p, 132)
+            assert bn in (32, 64, 128, 256) and splits in (1, 2, 4, 8)
+            assert splits <= -(-cin_p // 64)
+        if k > 1 and r == 8:
+            assert which == "direct"
+
+
+@pytest.mark.parametrize("kernel,switch", [
+    *(("int8_conv", s) for s in ("PART_NO_FILL", "PART_NO_MMA", "PART_NO_B", "PART_IN_FLIGHT",
+                                 "PART_TAPS_PER_STAGE")),
+    *(("int8_gemm", s) for s in ("PART_NO_A", "PART_NO_QUANT", "PART_NO_B", "PART_NO_MMA",
+                                 "PART_NO_SUM", "PART_NO_EPILOGUE", "PART_RING",
+                                 "PART_A_L2")),
+])
+def test_kernel_parts_script_switches_the_current_source(kernel, switch):
     """`scripts/int8_kernel_parts.py` passes each of its switches to nvcc as
-    a macro, and the kernel source tests every one of them."""
+    a macro, and the kernel's source tests every one of them."""
     from nestinet_tpu_torch.scripts import int8_kernel_parts
 
-    flags = {f.split("=")[0] for v in int8_kernel_parts.VARIANTS.values() for f in v}
+    lib, variants, _ = int8_kernel_parts.KERNELS[kernel]
+    flags = {f.split("=")[0] for v in variants.values() for f in v}
     assert f"-D{switch}" in flags
-    with open(int8_cuda.KERNEL.source) as f:
+    with open(lib.source) as f:
         src = f.read()
     assert f"#ifdef {switch}" in src or f"#ifndef {switch}" in src
