@@ -169,7 +169,7 @@ and prints no result):
      on two of the test shapes (ids identical to phase 7's, normals within
      1e-4) and in int8 with BatchNorm folded on one (one process's files
      of that shape byte for byte), each rank's patches, expert runs and
-     launches counted, the routed grids' all-gather timed.  Phase 16 first
+     launches counted.  Phase 16 first
      serves that one shape in one process in float32 and int8+fold, the
      references of 16a and 16b: routed, an expert run holds rows of several
      shapes, so a one-shape call's files are not phase 7's or 10's.  Two
@@ -2348,7 +2348,7 @@ def phase16b_cli(data, run, dev_sparse, int8_fold, kernels, card, int8_per):
     normals within 1e-4) and on one in int8 with BatchNorm folded (files
     identical to one process's, `one_process_refs`); each rank's batches,
     expert runs and launches (the int8 kernel's as its batches and runs
-    make), and the routed grids' all-gather timed."""
+    make)."""
     import numpy as np
     import torch
 
@@ -2399,8 +2399,7 @@ def phase16b_cli(data, run, dev_sparse, int8_fold, kernels, card, int8_per):
               f"{[r['n_batches'] for r in ranks]}, expert runs "
               f"{[r['expert_runs'] for r in ranks]} of {stats['expert_runs']} "
               f"({stats['forced_flushes']} forced flushes, window {stats['window_slots']} "
-              f"slots), grids all-gathered in {1e3 * stats['all_gather_seconds']:.1f} ms on "
-              f"rank 0, launches {[r['launches'] for r in ranks]}; {check} [{card}]",
+              f"slots), launches {[r['launches'] for r in ranks]}; {check} [{card}]",
               flush=True)
         if not same:
             fail(f"cli.test --data_parallel {DP_RANKS} {label}: {check}")

@@ -58,7 +58,7 @@ import time
 import numpy as np
 import torch
 
-from ..core import checkpoint
+from ..core import checkpoint, profiling
 from ..core.config import Config
 from ..core.device import resolve_device, set_f32_numerics
 from ..core.rundir import RunDir
@@ -83,22 +83,29 @@ def load_run(run_dir: str, device: torch.device, compute_dtype: str | None = Non
     dir holds no torch checkpoint.  The weights are loaded in float32, then the
     BatchNorms folded (with `fold_bn`) and then the kernels quantized
     (int8), on the host, as JAX's `restore_model` does (`:207-222`)."""
-    rd = RunDir.open(run_dir)
-    cfg = Config.load(rd.config_path)
-    if compute_dtype is not None:
-        cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
-    if fold_bn is not None:
-        cfg = dataclasses.replace(cfg, fold_bn=bool(fold_bn))
-    gmm = GridGMM.load(rd.gmm_path)
-    model = build_model(cfg, gmm)
-    payload = checkpoint.load_for_serving(rd.path, torch.device("cpu"), cfg)
-    check_widths(model, payload["state_dict"], run_dir, cfg.model)
-    model.load_state_dict(payload["state_dict"])
-    if model.fold_bn:
-        fold_bn_(model)
-    if model.quantize:
-        quantize_(model)
-    model.to(device).eval()
+    with profiling.span("load_run"):
+        rd = RunDir.open(run_dir)
+        cfg = Config.load(rd.config_path)
+        if compute_dtype is not None:
+            cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+        if fold_bn is not None:
+            cfg = dataclasses.replace(cfg, fold_bn=bool(fold_bn))
+        gmm = GridGMM.load(rd.gmm_path)
+        with profiling.span("load_run.build"):
+            model = build_model(cfg, gmm)
+        with profiling.span("load_run.read"):
+            payload = checkpoint.load_for_serving(rd.path, torch.device("cpu"), cfg)
+        with profiling.span("load_run.load_state"):
+            check_widths(model, payload["state_dict"], run_dir, cfg.model)
+            model.load_state_dict(payload["state_dict"])
+        if model.fold_bn:
+            with profiling.span("load_run.fold"):
+                fold_bn_(model)
+        if model.quantize:
+            with profiling.span("load_run.quantize"):
+                quantize_(model)
+        with profiling.span("load_run.upload"):
+            model.to(device).eval()
     return rd, cfg, gmm, model
 
 
@@ -238,7 +245,6 @@ class SparseMoeRouter:
         self.ready = np.zeros(self.R, bool)
         self.batch_i = self.n_patches = self.emit_ptr = self.round = 0
         self.expert_runs = self.forced_flushes = self.executed = 0
-        self.gather_seconds = 0.0
 
     # ---- JAX's driver protocol ----
     def begin_batch(self) -> int:
@@ -274,11 +280,8 @@ class SparseMoeRouter:
         self._emit()
         if self.emit_ptr != self.n_patches:
             raise RuntimeError(f"the router emitted {self.emit_ptr} of {self.n_patches} patches")
-        stats = {"expert_runs": self.expert_runs, "forced_flushes": self.forced_flushes,
-                 "window_slots": self.W}
-        if self.ranks > 1:
-            stats["all_gather_seconds"] = self.gather_seconds
-        return stats
+        return {"expert_runs": self.expert_runs, "forced_flushes": self.forced_flushes,
+                "window_slots": self.W}
 
     def serve(self, real: int, grid: torch.Tensor, probs: torch.Tensor) -> None:
         """This rank's next batch (`real` real rows of the padded grid, the
@@ -291,12 +294,8 @@ class SparseMoeRouter:
             return
         parts = [grid.reshape(-1).view(torch.uint8),
                  probs.to(torch.float32).contiguous().reshape(-1).view(torch.uint8)]
-        sync = torch.cuda.synchronize if grid.device.type == "cuda" else (lambda: None)
-        sync()
-        t0 = time.perf_counter()
-        gathered = self.mesh.all_gather_tensor(torch.cat(parts))
-        sync()
-        self.gather_seconds += time.perf_counter() - t0
+        with profiling.span("router.all_gather"):
+            gathered = self.mesh.all_gather_tensor(torch.cat(parts))
         cut = parts[0].numel()
         for r, flat in enumerate(gathered):
             i = self.round * self.ranks + r
@@ -308,7 +307,7 @@ class SparseMoeRouter:
 
     # ---- internals ----
     def _process(self, b: int, real: int, probs: torch.Tensor) -> None:
-        probs = probs.cpu().numpy()  # [E, real]
+        probs = profiling.fetch("fetch.probs", probs).numpy()  # [E, real]
         ids = np.argmax(probs, axis=0)
         base = self.n_patches
         idxs = base + np.arange(real, dtype=np.int64)
@@ -368,9 +367,10 @@ class SparseMoeRouter:
         if k % self.ranks != self.rank:
             self._complete(idxs, None)
             return
-        index = torch.from_numpy(flats).to(self.fifo.device)
-        normals = self.model.expert_on_grid(e, self.fifo.index_select(0, index))[:n]
-        normals = normals.cpu().numpy()
+        with profiling.span("router.expert", device=True):
+            index = profiling.upload("upload.index", flats, self.fifo.device)
+            normals = self.model.expert_on_grid(e, self.fifo.index_select(0, index))[:n]
+        normals = profiling.fetch("fetch.normals", normals).numpy()
         self.executed += 1
         self._complete(idxs, normals)
         if self.ranks > 1:
@@ -435,7 +435,8 @@ def serve_grid(model, grid: torch.Tensor, real: int, rows: np.ndarray):
     if not is_moe(model):
         outputs = model.forward_grid(grid)
         if isinstance(model, SwitchingNormEst):
-            small = int((outputs["noise_pred"][:real] < NOISE_SWITCH_THRESHOLD).sum())
+            small = int(profiling.fetch("fetch.outputs",
+                                        (outputs["noise_pred"][:real] < NOISE_SWITCH_THRESHOLD).sum()))
             rows += (small, real - small)
         return model.predict_normals(outputs)[:real], None, None
     outputs = model.forward_grid(grid)
@@ -444,7 +445,9 @@ def serve_grid(model, grid: torch.Tensor, real: int, rows: np.ndarray):
 
 
 def _host(t) -> np.ndarray | None:
-    return t if t is None or isinstance(t, np.ndarray) else t.cpu().numpy()
+    if t is None or isinstance(t, np.ndarray):
+        return t
+    return profiling.fetch("fetch.outputs", t).numpy()
 
 
 def append_outputs(writer, rows: np.ndarray, normals, experts, probs) -> None:
@@ -566,10 +569,14 @@ def serve_batch(model, router, outputs: RankOutputs, grid: torch.Tensor, real: i
     """One padded batch's grid this rank computed: routed, dense, or the
     other models' forward."""
     outputs.served(real)
+    with profiling.span("batch.model", device=True):
+        out = (serve_grid(model, grid, real, outputs.rows) if router is None
+               else model.manager_probs(grid))
     if router is None:
-        outputs.add(*serve_grid(model, grid, real, outputs.rows))
+        outputs.add(*out)
     else:
-        router.serve(real, grid, model.manager_probs(grid))
+        with profiling.span("router.commit"):
+            router.serve(real, grid, out)
 
 
 def check_moe_inference(moe_inference: str) -> None:

@@ -15,7 +15,7 @@ import os
 
 import numpy as np
 
-from ..core import textio
+from ..core import profiling, textio
 
 
 class ShapeScatterWriter:
@@ -43,42 +43,44 @@ class ShapeScatterWriter:
     def append(self, normals, experts=None, expert_probs=None):
         """Append a batch of per-patch outputs (already trimmed of any
         padding rows)."""
-        normals = np.asarray(normals)
-        batch_offset = 0
-        while batch_offset < normals.shape[0] and self.shape_ind < len(self.shape_names):
-            remaining_shape = self.counts[self.shape_ind] - self.offset
-            remaining_batch = normals.shape[0] - batch_offset
-            take = min(remaining_shape, remaining_batch)
+        with profiling.span("write"):
+            normals = np.asarray(normals)
+            batch_offset = 0
+            while batch_offset < normals.shape[0] and self.shape_ind < len(self.shape_names):
+                remaining_shape = self.counts[self.shape_ind] - self.offset
+                remaining_batch = normals.shape[0] - batch_offset
+                take = min(remaining_shape, remaining_batch)
 
-            dst = slice(self.offset, self.offset + take)
-            src = slice(batch_offset, batch_offset + take)
-            self.normals[dst] = normals[src]
-            if self.n_experts is not None:
-                self.experts[dst] = np.asarray(experts)[src]
-                self.expert_probs[dst] = np.asarray(expert_probs)[src]
+                dst = slice(self.offset, self.offset + take)
+                src = slice(batch_offset, batch_offset + take)
+                self.normals[dst] = normals[src]
+                if self.n_experts is not None:
+                    self.experts[dst] = np.asarray(experts)[src]
+                    self.expert_probs[dst] = np.asarray(expert_probs)[src]
 
-            self.offset += take
-            batch_offset += take
+                self.offset += take
+                batch_offset += take
 
-            if self.offset == self.counts[self.shape_ind]:
-                self._flush()
+                if self.offset == self.counts[self.shape_ind]:
+                    self._flush()
 
     def _flush(self):
-        name = self.shape_names[self.shape_ind]
-        textio.savetxt(os.path.join(self.output_dir, name + ".normals"), self.normals)
-        if self.n_experts is not None:
-            textio.savetxt(
-                os.path.join(self.output_dir, name + ".experts"), self.experts,
-                fmt="%i",
-            )
-            textio.savetxt(
-                os.path.join(self.output_dir, name + ".experts_probs"),
-                self.expert_probs,
-            )
-        self.written.append(name)
-        self.shape_ind += 1
-        self.offset = 0
-        self._alloc()
+        with profiling.span("write.flush"):
+            name = self.shape_names[self.shape_ind]
+            textio.savetxt(os.path.join(self.output_dir, name + ".normals"), self.normals)
+            if self.n_experts is not None:
+                textio.savetxt(
+                    os.path.join(self.output_dir, name + ".experts"), self.experts,
+                    fmt="%i",
+                )
+                textio.savetxt(
+                    os.path.join(self.output_dir, name + ".experts_probs"),
+                    self.expert_probs,
+                )
+            self.written.append(name)
+            self.shape_ind += 1
+            self.offset = 0
+            self._alloc()
 
     @property
     def done(self) -> bool:

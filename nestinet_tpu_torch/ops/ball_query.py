@@ -33,6 +33,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core import profiling
+
 _MASK32 = 0xFFFFFFFF
 _NEG = -(2**31) + 1  # the JAX code's "no segment" value
 
@@ -63,7 +65,7 @@ def build_grid(points: torch.Tensor, radius, *, max_dim: int = 64) -> HashGrid:
     points = points.to(torch.float32)
     lo = torch.amin(points, dim=0)
     hi = torch.amax(points, dim=0)
-    radius = torch.tensor(radius, dtype=torch.float32, device=points.device)
+    radius = profiling.upload("upload.radius", radius, points.device, torch.float32)
     dims = torch.clamp(
         torch.clamp(torch.ceil((hi - lo) / radius), min=1).to(torch.int32), max=max_dim
     )
@@ -117,7 +119,7 @@ def _candidate_window(grid: HashGrid, queries, radius, *, cell_capacity: int,
     """
     dev = queries.device
     B = queries.shape[0]
-    radius = torch.as_tensor(radius, dtype=torch.float32, device=dev)
+    radius = profiling.upload("upload.radius", radius, dev, torch.float32)
     queries = queries.to(torch.float32)
     dims = grid.dims
 
@@ -220,7 +222,7 @@ def _query_select(grid: HashGrid, queries, radius, *, k: int, cell_capacity: int
         else:
             # a uniform k-subset per query: i.i.d. hash keys per (query,
             # candidate); keys are 30-bit, odd, and > 0 on hits only
-            seed = torch.as_tensor(seed, dtype=torch.int64, device=dev)
+            seed = profiling.upload("upload.seed", seed, dev, torch.int64)
             salt = torch.arange(B, dtype=torch.int64, device=dev) * 0x9E3779B9 + seed
             q_salt = _mix32(salt & _MASK32)
             h = _mix32(cand ^ q_salt[:, None])
@@ -272,7 +274,7 @@ def extract_patches(grid: HashGrid, queries, radius, *, k: int, cell_capacity: i
         window_capacity=window_capacity,
     )
     mask = took_hit[..., None]
-    radius = torch.as_tensor(radius, dtype=torch.float32, device=queries.device)
+    radius = profiling.upload("upload.radius", radius, queries.device, torch.float32)
     if center == "point":
         pts = pts - queries.to(torch.float32)[:, None]
     elif center == "mean":
