@@ -2,8 +2,9 @@
 
 A torch checkpoint is `torch.save({"state_dict", "optimizer", "step",
 "epoch"})` (the optimizer's state dict, or None), read with
-`torch.load(weights_only=True)`.  A run dir holds two slots, as the JAX
-trainer's `ckpt/` and `ckpt_best/` (`nestinet_tpu/train/trainer.py:253-283`):
+`torch.load(weights_only=True, mmap=True)`.  A run dir holds two slots,
+as the JAX trainer's `ckpt/` and `ckpt_best/`
+(`nestinet_tpu/train/trainer.py:253-283`):
 
     <run>/ckpt_torch/model.pt        the periodic checkpoint; resume reads it
     <run>/ckpt_torch_best/model.pt   the best validation RMS; serving
@@ -121,11 +122,14 @@ def load_jax(run_path: str, cfg, best: bool = False) -> dict:
 
 def load(run_path: str, device: torch.device, best: bool = False, cfg=None) -> dict:
     """{"state_dict", "optimizer", "step", "epoch"}, tensors on `device`.
-    Without a torch checkpoint in the run dir, the JAX trainer's in the
-    same slot, converted for `cfg` (see `load_jax`)."""
+    A torch checkpoint's tensors are mapped from its file, copy on write,
+    and not read into memory first: on the CPU they stay mapped, elsewhere
+    they are copied to `device` from the map.  Without a torch checkpoint in
+    the run dir, the JAX trainer's in the same slot, converted for `cfg`
+    (see `load_jax`)."""
     path = checkpoint_path(run_path, best)
     if os.path.isfile(path):
-        return torch.load(path, map_location=device, weights_only=True)
+        return torch.load(path, map_location=device, weights_only=True, mmap=True)
     if cfg is not None and not has_torch_checkpoint(run_path) and jax_exists(run_path, best):
         payload = load_jax(run_path, cfg, best)
         payload["state_dict"] = {k: v.to(device) for k, v in payload["state_dict"].items()}

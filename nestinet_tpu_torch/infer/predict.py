@@ -80,9 +80,18 @@ def load_run(run_dir: str, device: torch.device, compute_dtype: str | None = Non
     eval mode: the best-validation checkpoint when the trainer wrote one,
     else the periodic one, as JAX's `restore_model` prefers `ckpt_best/`
     (`:164-169`); the torch trainer's, or the JAX trainer's when the run
-    dir holds no torch checkpoint.  The weights are loaded in float32, then the
-    BatchNorms folded (with `fold_bn`) and then the kernels quantized
-    (int8), on the host, as JAX's `restore_model` does (`:207-222`)."""
+    dir holds no torch checkpoint.
+
+    The weights exist once, on `device`: the model is built there without
+    initialising them (JAX's `restore_model` builds its templates with
+    `jax.eval_shape`, `:197-203`), the checkpoint is read mapped from its
+    file and copied to the device once, and `load_state_dict` (strict) then
+    fills every parameter and state tensor, so a checkpoint that lacks one
+    raises.  The BatchNorms are folded (with `fold_bn`) and then the kernels
+    quantized (int8) on those tensors, on the device, in float32 torch ops
+    that give JAX's NumPy numbers bit for bit (`:207-222`, `ops/fold.py`,
+    `ops/quant.py`)."""
+    device = torch.device(device)
     with profiling.span("load_run"):
         rd = RunDir.open(run_dir)
         cfg = Config.load(rd.config_path)
@@ -92,20 +101,24 @@ def load_run(run_dir: str, device: torch.device, compute_dtype: str | None = Non
             cfg = dataclasses.replace(cfg, fold_bn=bool(fold_bn))
         gmm = GridGMM.load(rd.gmm_path)
         with profiling.span("load_run.build"):
-            model = build_model(cfg, gmm)
+            with device:
+                model = build_model(cfg, gmm, init=False)
+            model.to(device)  # the GMM's buffers, made from NumPy arrays
         with profiling.span("load_run.read"):
             payload = checkpoint.load_for_serving(rd.path, torch.device("cpu"), cfg)
+        with profiling.span("load_run.upload"):
+            state = {k: v.to(device) for k, v in payload.pop("state_dict").items()}
         with profiling.span("load_run.load_state"):
-            check_widths(model, payload["state_dict"], run_dir, cfg.model)
-            model.load_state_dict(payload["state_dict"])
+            check_widths(model, state, run_dir, cfg.model)
+            model.load_state_dict(state)
+            del state
         if model.fold_bn:
-            with profiling.span("load_run.fold"):
+            with profiling.span("load_run.fold", device=True):
                 fold_bn_(model)
         if model.quantize:
-            with profiling.span("load_run.quantize"):
+            with profiling.span("load_run.quantize", device=True):
                 quantize_(model)
-        with profiling.span("load_run.upload"):
-            model.to(device).eval()
+        model.eval()
     return rd, cfg, gmm, model
 
 

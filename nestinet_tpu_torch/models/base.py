@@ -6,8 +6,9 @@ statistics grid, and `FCHead` is the reference's FC head (`:120-144`):
 hidden `DenseBN` layers with BN and ReLU and optional dropout, a last layer
 without BN.  Every
 forward takes `training` and the scheduled `bn_momentum`, as JAX's
-`apply(..., is_training, bn_momentum)`.  A model initializes its weights
-when it is built (`init_params`), from a `torch.Generator`.
+`apply(..., is_training, bn_momentum)`.  `build_model` initializes the
+weights (`init_params`) from a `torch.Generator`, unless its caller loads
+every one of them (`infer/predict.py::load_run`).
 
 Serving modes, from the config as in JAX (`:42-53`): `compute_dtype` is
 bfloat16 for "bfloat16" and "int8" and float32 otherwise (parameters stay
@@ -138,13 +139,10 @@ class SingleNetNormEst(ModelBase):
     DROPOUT_RATE = 0.3
     HAIKU_NETS = {"net": ""}  # {torch net: haiku prefix} (convert.py)
 
-    def __init__(self, cfg, gmm, spec, generator: torch.Generator | None = None):
+    def __init__(self, cfg, gmm, spec):
         super().__init__(cfg, gmm)
         self.net = ConvNet(spec, 20 * cfg.n_scales, self.resolution, (1024, 256, 128), 3,
                            dropout_rate=self.DROPOUT_RATE)
-        if generator is None:
-            generator = torch.Generator().manual_seed(cfg.seed)
-        init_params(self, generator)
 
     def forward_grid(self, grid: torch.Tensor, training: bool = False, bn_momentum=None,
                      dropout_masks: Dropout | None = None) -> dict:

@@ -47,7 +47,7 @@ import dataclasses
 import torch
 
 from . import backbones
-from .base import ConvNet, ModelBase, init_params
+from .base import ConvNet, ModelBase
 from .losses import moe_loss
 
 
@@ -91,9 +91,7 @@ def expert_groups(cfg) -> list[ExpertGroup]:
 
 
 class ExpertsNormEst(ModelBase):
-    def __init__(self, cfg, gmm, generator: torch.Generator | None = None):
-        """Builds and initializes the model: weights from `generator`, or
-        from one seeded with `cfg.seed` (JAX inits from PRNGKey(cfg.seed))."""
+    def __init__(self, cfg, gmm):
         super().__init__(cfg, gmm)
         res = self.resolution
         if res not in (3, 8):
@@ -124,9 +122,6 @@ class ExpertsNormEst(ModelBase):
                 )
                 self.slices[i] = (start, start + g.channels)
         self.experts = torch.nn.ModuleList(experts)
-        if generator is None:
-            generator = torch.Generator().manual_seed(cfg.seed)
-        init_params(self, generator)
         self.full_state_keys = list(self.state_dict())
         self.full_parameter_names = [n for n, _ in self.named_parameters()]
         self.shard_blocks = None  # [expert rank: its sharded expert ids]

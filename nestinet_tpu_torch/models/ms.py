@@ -9,16 +9,14 @@ so does this one.
 
 from __future__ import annotations
 
-import torch
-
 from . import backbones
 from .base import SingleNetNormEst
 
 
 class MSNormEst(SingleNetNormEst):
-    def __init__(self, cfg, gmm, generator: torch.Generator | None = None):
+    def __init__(self, cfg, gmm):
         specs = {8: backbones.MS_BACKBONE_8G, 3: backbones.CONV_NET_3G}
         if gmm.resolution not in specs:
             raise ValueError("the multi-scale model supports 3^3 or 8^3 Gaussian grids "
                              "(parity: ms_norm_est.py:83-118)")
-        super().__init__(cfg, gmm, specs[gmm.resolution], generator)
+        super().__init__(cfg, gmm, specs[gmm.resolution])

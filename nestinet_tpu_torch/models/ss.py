@@ -8,14 +8,12 @@ ignores `cfg.tiny_backbone`; so does this one.
 
 from __future__ import annotations
 
-import torch
-
 from . import backbones
 from .base import SingleNetNormEst
 
 
 class SSNormEst(SingleNetNormEst):
-    def __init__(self, cfg, gmm, generator: torch.Generator | None = None):
+    def __init__(self, cfg, gmm):
         if cfg.n_scales != 1:
             raise ValueError("the single-scale model takes a single patch radius")
-        super().__init__(cfg, gmm, backbones.SS_BACKBONE, generator)
+        super().__init__(cfg, gmm, backbones.SS_BACKBONE)

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from . import backbones
-from .base import ConvNet, ModelBase, init_params
+from .base import ConvNet, ModelBase
 from .losses import switching_loss
 
 NOISE_SWITCH_THRESHOLD = 0.015  # `ms_sw_n_est.py:82`
@@ -29,7 +29,7 @@ class SwitchingNormEst(ModelBase):
     # {torch net: haiku prefix} (convert.py), in JAX's call order
     HAIKU_NETS = {"noise": "noise_", "large": "large_", "small": "small_"}
 
-    def __init__(self, cfg, gmm, generator: torch.Generator | None = None):
+    def __init__(self, cfg, gmm):
         super().__init__(cfg, gmm)
         if cfg.n_scales != 2:
             raise ValueError("the switching model takes exactly two patch radii")
@@ -38,9 +38,6 @@ class SwitchingNormEst(ModelBase):
                              final_init=(NOISE_HEAD_INIT_STDDEV, NOISE_SWITCH_THRESHOLD))
         self.large = ConvNet(backbones.SW_BACKBONE, 20, res, hidden, 3)
         self.small = ConvNet(backbones.SW_BACKBONE, 20, res, hidden, 3)
-        if generator is None:
-            generator = torch.Generator().manual_seed(cfg.seed)
-        init_params(self, generator)
 
     def forward_grid(self, grid: torch.Tensor, training: bool = False, bn_momentum=None,
                      dropout_masks=None) -> dict:

@@ -10,28 +10,31 @@ and `DenseBN`), so it folds exactly into that kernel:
     w' = w * s                          (per output channel)
     b' = (b - mean) * s + beta
 
-computed in NumPy float32 on the host, as JAX computes it; the BN module is
-then replaced by an identity.  All or nothing: a BN without a conv/linear
-sibling raises, and so does a kernel that is already quantized (fold
-first, then quantize, as `infer/predict.py::load_run` does).
+computed in float32 torch ops on the tensors' own device (the card, when
+`infer/predict.py::load_run` serves there), one rounding an op in the
+order JAX's NumPy code takes (the square root taken in float64 and
+rounded once, which is float32's correctly rounded one), so the folded
+kernels and biases are JAX's bit for bit.  Every constant is a float32
+tensor on that device: CUDA divides by a Python scalar or a CPU 0-d
+tensor as a multiply by its reciprocal (`ops/quant.py::activation_scale`).
+The BN module is then replaced by an identity.  All or nothing: a BN
+without a conv/linear sibling raises, and so does a kernel that is already
+quantized (fold first, then quantize, as `load_run` does).
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 from torch import nn
 
 from .nn import BN_EPS, BatchNormEMA, _Conv3D, _Linear
 
 
-def _debiased_moments(bn: BatchNormEMA) -> tuple[np.ndarray, np.ndarray]:
+def _debiased_moments(bn: BatchNormEMA) -> tuple[torch.Tensor, torch.Tensor]:
     """BatchNormEMA's eval read: the zero-debiased EMA moments, float32."""
-    bias = bn.bias.detach().cpu().numpy().astype(np.float32)
-    denom = np.maximum(1.0 - bias, 1e-12)
-    mean = bn.ema_mean.detach().cpu().numpy().astype(np.float32) / denom
-    var = bn.ema_var.detach().cpu().numpy().astype(np.float32) / denom
-    return mean, var
+    one = torch.ones((), dtype=torch.float32, device=bn.bias.device)
+    denom = torch.clamp(one - bn.bias.float(), min=1e-12)
+    return bn.ema_mean.float() / denom, bn.ema_var.float() / denom
 
 
 @torch.no_grad()
@@ -49,15 +52,17 @@ def fold_bn_(model: nn.Module, eps: float = BN_EPS) -> nn.Module:
             if target.quantized:
                 raise ValueError(f"the kernel beside '{path}' is already quantized: "
                                  "fold BN before int8")
-            gamma = child.gamma.detach().cpu().numpy().astype(np.float32)
-            beta = child.beta.detach().cpu().numpy().astype(np.float32)
             mean, var = _debiased_moments(child)
-            sc = gamma / np.sqrt(var + eps)  # [cout]
-            w = target.w.detach().cpu().numpy().astype(np.float32)
-            b = target.b.detach().cpu().numpy().astype(np.float32)
-            w = w * sc.reshape((-1,) + (1,) * (w.ndim - 1))  # cout is axis 0
-            b = (b - mean) * sc + beta
-            target.w.copy_(torch.from_numpy(w.astype(np.float32)))
-            target.b.copy_(torch.from_numpy(b.astype(np.float32)))
+            eps_t = torch.full((), eps, dtype=torch.float32, device=var.device)
+            # the float32 square root, correctly rounded as NumPy's: taken in
+            # float64 and rounded once (PyTorch's CPU float32 sqrt of a long
+            # vector may be off by an ulp)
+            root = torch.sqrt((var + eps_t).double()).float()
+            sc = child.gamma.float() / root  # [cout]
+            w = target.w.float()
+            w = w * sc.view((-1,) + (1,) * (w.dim() - 1))  # cout is axis 0
+            b = (target.b.float() - mean) * sc + child.beta.float()
+            target.w.copy_(w)
+            target.b.copy_(b)
             setattr(parent, name, nn.Identity())
     return model

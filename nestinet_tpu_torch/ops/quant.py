@@ -2,7 +2,8 @@
 
 Counterpart of `nestinet_tpu/ops/quant.py`, with the same scheme:
   * weights: symmetric per-output-channel int8, quantized once at load on
-    the host, bit for bit as `quantize_params_np` (`:175-227`):
+    the serving device (`infer/predict.py::load_run`), bit for bit as
+    `quantize_params_np` (`:175-227`) computes it in NumPy:
     amax = max|w| over every axis but cout, scale = max(amax, 1e-12) / 127,
     w_q = clip(round(w / scale), -127, 127);
   * activations: symmetric per-tensor dynamic int8 (`:67-72`, `:106-112`):
@@ -41,7 +42,6 @@ int8 path from then on (JAX switches with a trace-time context instead).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -61,18 +61,21 @@ def padded_channels(cin: int) -> int:
 
 def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """A float32 kernel, OIDHW or [out, in] -> (w_q int8 [cout, k^3, cin_p],
-    scale float32 [cout]) on w's device.  NumPy float32 on the host, as
-    `quantize_params_np` computes it."""
-    a = w.detach().cpu().numpy().astype(np.float32)
-    amax = np.max(np.abs(a), axis=tuple(range(1, a.ndim)), keepdims=True)
-    scale = np.maximum(amax, 1e-12) / 127.0
-    q = np.clip(np.round(a / scale), -127, 127).astype(np.int8)
+    scale float32 [cout]) on w's device, in float32 torch ops there, bit
+    for bit what `quantize_params_np` computes in NumPy: the scale divided
+    by a float32 tensor on that device (see `activation_scale`), and
+    `torch.round` rounds half to even, as `np.round` does."""
+    a = w.detach().float()
+    amax = a.abs().amax(dim=tuple(range(1, a.dim())), keepdim=True)
+    scale = torch.clamp(amax, min=1e-12) / torch.full((), 127.0, dtype=torch.float32,
+                                                       device=a.device)
+    q = torch.clamp(torch.round(a / scale), -127, 127).to(torch.int8)
     cout, cin = q.shape[:2]
-    q = q.reshape(cout, cin, -1).transpose(0, 2, 1)  # [cout, taps, cin]
-    packed = np.zeros((cout, q.shape[1], padded_channels(cin)), np.int8)
+    q = q.reshape(cout, cin, -1).transpose(1, 2)  # [cout, taps, cin]
+    packed = torch.zeros((cout, q.shape[1], padded_channels(cin)), dtype=torch.int8,
+                         device=a.device)
     packed[..., :cin] = q
-    return (torch.from_numpy(packed).to(w.device),
-            torch.from_numpy(scale.reshape(cout).astype(np.float32)).to(w.device))
+    return packed, scale.reshape(cout)
 
 
 def activation_scale(x: torch.Tensor, x_amax=None) -> torch.Tensor:
@@ -167,9 +170,10 @@ def linear_int8(x, w_q, s_w, b, x_amax=None, *, relu: bool = False) -> torch.Ten
 
 
 def quantize_(model: torch.nn.Module) -> torch.nn.Module:
-    """Quantize every conv and linear kernel of `model` in place, once
-    (JAX does it at load, `infer/predict.py:215-222`); raises if a kernel
-    is already quantized.  Fold BatchNorm first (`ops/fold.py`)."""
+    """Quantize every conv and linear kernel of `model` in place, once, on
+    the kernels' device (JAX does it at load, `infer/predict.py:215-222`);
+    raises if a kernel is already quantized.  Fold BatchNorm first
+    (`ops/fold.py`)."""
     from .nn import _Conv3D, _Linear
 
     for name, m in model.named_modules():

@@ -1,7 +1,8 @@
 """BatchNorm folding of the port (`ops/fold.py`) against the JAX package.
 
-The port folds on its module tree, JAX on the haiku trees
-(`fold_bn_params_np`); both in NumPy float32 on the host.  Bars: every
+The port folds on its module tree in float32 torch ops on the tensors'
+device, JAX on the haiku trees in NumPy float32 on the host
+(`fold_bn_params_np`).  Bars: every
 folded kernel and bias within atol 1e-6 of JAX's after the layout map;
 a folded float32 model within atol 1e-4 of the
 unfolded one (float reassociation only); the all-or-nothing contract

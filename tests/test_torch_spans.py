@@ -33,7 +33,13 @@ ROUTED_KEYS = {"compute_dtype", "data_parallel", "device", "expert_rows", "exper
                "fold_bn", "forced_flushes", "model", "moe_inference", "n_batches", "n_patches",
                "output_dir", "patches_per_sec", "per_rank", "seconds", "shapes", "window_caps",
                "window_slots"}
-LOAD_RUN = {"load_run.build", "load_run.read", "load_run.load_state", "load_run.upload"}
+# load_run's parts in order: the checkpoint copied to the device once, after
+# the read; int8 + fold then folds and quantizes there
+LOAD_RUN = ["load_run.build", "load_run.read", "load_run.upload", "load_run.load_state"]
+PREPARE = ["load_run.fold", "load_run.quantize"]
+# the jobs served under the profiler: routed, dense, and routed in int8 + fold
+MODES = {"sparse": dict(moe_inference="sparse"), "dense": dict(moe_inference="dense"),
+         "int8fold": dict(moe_inference="sparse", compute_dtype="int8", fold_bn=True)}
 LOOP = {"shape", "batch.extract", "batch.mups", "batch.model", "router.commit",
         "router.finish", "outputs.finish"}
 
@@ -64,9 +70,9 @@ def serve(run, name, **kw):
 @pytest.fixture(scope="module")
 def profiled(run):
     """{mode: (stats, the profiler's event names, the names of the fetch and
-    upload calls)} of a routed and a dense job served under the profiler."""
+    upload calls)} of each job of `MODES` served under the profiler."""
     out = {}
-    for mode in ("sparse", "dense"):
+    for mode, kw in MODES.items():
         calls = []
         inner = profiling.fetch, profiling.upload
 
@@ -81,7 +87,7 @@ def profiled(run):
         profiling.fetch, profiling.upload = fetch, upload
         try:
             with profile(activities=[ProfilerActivity.CPU]) as prof:
-                stats = serve(run, "on_" + mode, moe_inference=mode)
+                stats = serve(run, "on_" + mode, **kw)
         finally:
             profiling.fetch, profiling.upload = inner
         # the profiler's raw results: its `events()` take seconds to build
@@ -116,7 +122,7 @@ def test_a_dense_job_outside_a_profiler_records_nothing(run, profiled, monkeypat
     assert set(stats) == set(profiled["dense"][0]) - {"trace"}
 
 
-@pytest.mark.parametrize("mode", ["sparse", "dense"])
+@pytest.mark.parametrize("mode", MODES)
 def test_a_profiled_job_returns_its_span_tree(profiled, mode):
     stats, profiler_names, _ = profiled[mode]
     spans = stats["trace"]["spans"]
@@ -137,9 +143,9 @@ def test_a_profiled_job_returns_its_span_tree(profiled, mode):
         return [c["name"] for c in spans if c["parent"] == s["id"]]
 
     assert children("job") == ["load_run", "clouds", "caps", "loop"]
-    assert set(children("load_run")) == LOAD_RUN
+    assert children("load_run") == LOAD_RUN + (PREPARE if mode == "int8fold" else [])
     loop_children = children("loop")
-    routed = mode == "sparse"
+    routed = mode != "dense"
     # dense, the outputs are fetched and written between the batches' spans
     assert set(loop_children) == (LOOP if routed else LOOP - {"router.commit", "router.finish"}
                                   | {"fetch.outputs", "write"})
@@ -160,7 +166,7 @@ def test_a_profiled_job_returns_its_span_tree(profiled, mode):
     assert set(names) <= profiler_names
 
 
-@pytest.mark.parametrize("mode", ["sparse", "dense"])
+@pytest.mark.parametrize("mode", MODES)
 def test_host_syncs_count_every_fetch_and_upload(profiled, mode):
     stats, _, calls = profiled[mode]
     spans = [s["name"] for s in stats["trace"]["spans"]]
