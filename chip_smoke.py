@@ -29,9 +29,12 @@ and prints no result):
   5. the fused int8 kernels (bf16 in, quantized on load, wgmma; ReLU and
      max|out| in the epilogue) against their plain version (the quantize
      pass, an exact integer conv in float64 and the same float32 epilogue)
-     at every distinct conv of the flagship manager and both expert widths
-     and every FC layer, each at B = 256 and at a routed sub-batch of 37
-     (the FCs and the 2^3 grid's convs also at 64 and 1), ReLU off and on,
+     at every distinct conv of the flagship manager, both expert widths and
+     the switching model's `SW_BACKBONE` (20 channels in; the 5^3 convs on
+     the 4^3 grid) and every FC layer, each at B = 256 and at a routed
+     sub-batch of 37 (the FCs and the 2^3 grid's convs also at 64 and 1,
+     the switching model's layers at 64, the router's padded run), ReLU
+     off and on,
      each with a forwarded bound and with the scale from max|x|: outputs
      and max|out| identical, and each call launched the kernel
      `int8_cuda.kernel_for` names and no other (the GEMM at every 1x1x1
@@ -112,11 +115,15 @@ and prints no result):
      multi-scale one on all three, the switching one on the smallest and
      largest (its noise head rescaled on one batch so that both branches
      are taken).  (a) Each serves one of the six test shapes (5,000
-     patches) through `predict_shapes_device` in float32 and bfloat16, the
+     patches) through `predict_shapes_device` in float32 and bfloat16
+     (the switching model routed, the default, and in bfloat16 also dense,
+     `moe_inference="dense"`: its normals held to the routed run's within 5%
+     of max |normal| on the rows clear of the switch), the
      single-scale model also in int8 with BatchNorm folded, which must
      launch the int8 kernels once a layer a batch (the GEMM once a 1x1x1 conv
-     or linear): one MuPS launch a batch, finite `.normals` and
-     no `.experts`, a finite RMS, patches/s and peak memory; the switching
+     or linear): one MuPS launch a batch, finite `.normals`, no `.experts`
+     but the switching model's (served routed: a branch id a patch), a
+     finite RMS, patches/s and peak memory; the switching
      model's share of served patches in each branch is printed, and a
      branch that serves none fails the run; one device batch is held
      against the same model on the plain MuPS at atol 1e-4 in float32.  (b) Each model's float32
@@ -271,9 +278,11 @@ N_EXPERTS = 7
 BLOCKS = (1, 2, 4, 8)
 INT8_BATCH = 256  # the device path's batch
 INT8_SUB_BATCH = 37  # a routed expert's sub-batch at B = 256
+# a routed run of fewer than B = 256 rows is padded to max(32, B // 4) = 64 rows
+INT8_ROUTED_RUN = max(32, INT8_BATCH // 4)
 # phase 5 also times the linears and the 2^3 grid's convs at these: a routed
-# run of B = 256 takes max(32, B // 4) = 64 rows, and a lone patch
-INT8_SMALL_BATCHES = (64, 1)
+# run and a lone patch
+INT8_SMALL_BATCHES = (INT8_ROUTED_RUN, 1)
 INT8_COUNTERS = ("int8_conv3d", "int8_gemm")  # the int8 kernels' launch counts
 KERNEL_ATOL = 1e-5
 GRAD_ATOL = 1e-4
@@ -309,6 +318,9 @@ ABLATION_DTYPES = {
     "ms_norm_est": (("f32", "float32", False), ("bf16", "bfloat16", False)),
     "ms_sw_n_est": (("f32", "float32", False), ("bf16", "bfloat16", False)),
 }
+# labels of ABLATION_DTYPES also served dense (moe_inference="dense", JAX's path)
+# beside their routed run: the switching model's bfloat16
+ABLATION_DENSE = {"ms_sw_n_est": "bf16"}
 ABLATION_TRAIN_STEPS = 6  # phase 14b: the f32 step timed over steps 3-6
 ABLATION_EPOCHS = 1  # phase 14b: cli.train of each ablation model
 # phase 14b's test lists of the trained runs: one shape; the switching model's two
@@ -316,6 +328,8 @@ ABLATION_EPOCHS = 1  # phase 14b: cli.train of each ablation model
 ABLATION_TESTSET = {"ss_norm_est": "testset_one", "ms_norm_est": "testset_one",
                     "ms_sw_n_est": "testset_two"}
 SWITCH_POINTS = 2000  # points per shape of the switching benchmark
+# routes of the ablation models served routed (the default): the switching model's branches
+ROUTED_BRANCHES = {"ms_sw_n_est": 2}
 # 30 training and 10 validation shapes: 3 steps of 256 an epoch, 1 validation batch
 SWITCH_PATCHES_PER_SHAPE = 32
 SWITCH_GAP = 1e-5  # noise estimates this close to 0.015 may take either branch
@@ -534,15 +548,11 @@ def check_blocked(gen, dev, gmm_t, R=3 * DEVICE_BATCH, N=512):
     return max_err, max_diff
 
 
-def int8_layer_shapes():
-    """Every distinct (cin, cout, k, r) conv of the flagship manager and of
-    both expert widths (first width 128 on 20 channels, 42 on 60), and the
-    (cin, cout) of their FC layers."""
-    from nestinet_tpu_torch.models import backbones
-
+def backbone_convs(nets) -> list:
+    """Every distinct (cin, cout, k, r) conv of the backbones `nets`
+    [(layer table, input channels)] on the 8^3 grid."""
     convs = []
-    for spec, c in ((backbones.CONV_NET_8G, 60), (backbones.expert_backbone_8g(128), 20),
-                    (backbones.expert_backbone_8g(42), 60)):
+    for spec, c in nets:
         r = 8
         for entry in spec:
             if entry[0] == "maxpool":
@@ -553,9 +563,37 @@ def int8_layer_shapes():
                 if shape not in convs:
                     convs.append(shape)
             c = n + 2 * (n // 2) + n
-    fcs = [(a, b) for widths in ((1536, 1024, 256, 128, N_EXPERTS), (1536, 512, 128, 64, 3))
-           for a, b in zip(widths, widths[1:])]
-    return convs, fcs
+    return convs
+
+
+def fc_layers(*heads) -> list:
+    """The distinct (cin, cout) of the FC heads' layers, each head its widths."""
+    return list(dict.fromkeys((a, b) for widths in heads for a, b in zip(widths, widths[1:])))
+
+
+def switching_layer_shapes():
+    """The switching model's int8 layers: the convs of `SW_BACKBONE` on one
+    radius's 20 channels (its three CNNs share it), and the (cin, cout) of
+    the noise head (FC 1024/256/128/1) and the normal heads (1024/256/128/3)
+    on the 2^3 grid's 1536 channels."""
+    from nestinet_tpu_torch.models import backbones
+
+    return (backbone_convs([(backbones.SW_BACKBONE, 20)]),
+            fc_layers((8 * 1536, 1024, 256, 128, 1), (8 * 1536, 1024, 256, 128, 3)))
+
+
+def int8_layer_shapes():
+    """Every distinct (cin, cout, k, r) conv of the flagship manager, of
+    both expert widths (first width 128 on 20 channels, 42 on 60) and of the
+    switching model (`switching_layer_shapes`), and the (cin, cout) of their
+    FC layers."""
+    from nestinet_tpu_torch.models import backbones
+
+    sw_convs, sw_fcs = switching_layer_shapes()
+    convs = backbone_convs([(backbones.CONV_NET_8G, 60), (backbones.expert_backbone_8g(128), 20),
+                            (backbones.expert_backbone_8g(42), 60)])
+    fcs = fc_layers((1536, 1024, 256, 128, N_EXPERTS), (1536, 512, 128, 64, 3))
+    return (list(dict.fromkeys(convs + sw_convs)), list(dict.fromkeys(fcs + sw_fcs)))
 
 
 def bound(ops: float, nbytes: float, ops_per_s: float):
@@ -677,8 +715,10 @@ def int_mm_ms(args, B, r):
 
 def check_int8_kernel(gen, dev, card):
     """Phase 5: the int8 kernels against their plain version at every conv
-    and FC shape of the flagship and both expert widths, at B = 256 and 37
-    (the FCs and the 2^3 grid's convs also at B = 64 and 1), ReLU off and on,
+    and FC shape of the flagship, both expert widths and the switching
+    model, at B = 256 and 37 (the FCs and the 2^3 grid's convs also at
+    B = 64 and 1, the switching model's layers also at B = 64, the router's
+    padded run), ReLU off and on,
     each with the forwarded bound and with the scale from max|x|: outputs
     and max|out| identical, and each call launched the kernel `kernel_for`
     names (the GEMM at k = 1, the conv kernels above) and no other.  Each
@@ -699,6 +739,10 @@ def check_int8_kernel(gen, dev, card):
               for cin, cout, k, r in convs if r == 2]
     cases += [(B, cin, cout, 1, 1) for B in (INT8_BATCH, INT8_SUB_BATCH, *INT8_SMALL_BATCHES)
               for cin, cout in fcs]
+    sw_convs, sw_fcs = switching_layer_shapes()
+    cases += [(INT8_ROUTED_RUN, cin, cout, k, r) for cin, cout, k, r in sw_convs]
+    cases += [(INT8_ROUTED_RUN, cin, cout, 1, 1) for cin, cout in sw_fcs]
+    cases = list(dict.fromkeys(cases))
     sms = int8_cuda.sm_count(dev.index)
     max_err, rows = 0.0, []
     for B, cin, cout, k, r in cases:
@@ -1735,6 +1779,49 @@ def phase15b(tmp, data, run, shapes, dev, kernels):
 # ---------------------------------------------------------------- phase 14
 
 
+def check_branch_share(name: str, stats: dict) -> None:
+    """The switching model's share of served patches in each branch,
+    printed; a branch that served none fails the run."""
+    if "branch_rows" not in stats:
+        return
+    rows = stats["branch_rows"]
+    small = rows["small_scale"] / stats["n_patches"]
+    print(f"{name}: of the {stats['n_patches']} served patches the small-scale branch takes "
+          f"{small:.4f}, the large-scale one {1 - small:.4f}", flush=True)
+    if min(rows.values()) == 0:
+        fail(f"{name}: a branch served no patch: {rows}")
+
+
+def check_dense_switching(data, testset, dense_dir, routed_dir) -> dict:
+    """Phase 14a: the switching model served dense against its routed run
+    of the same dtype, shape by shape: on the rows whose routed noise
+    estimate lies SWITCH_GAP or more from the switch, the normals within
+    BF16_ROUTED_RTOL of max |normal|; at most 2% of the rows left out."""
+    import numpy as np
+
+    from nestinet_tpu_torch.models.switching import NOISE_SWITCH_THRESHOLD as t
+
+    with open(os.path.join(data, testset + ".txt")) as f:
+        shapes = [s.strip() for s in f if s.strip()]
+    diff = scale = 0.0
+    rows = left_out = 0
+    for shape in shapes:
+        dense = np.loadtxt(os.path.join(dense_dir, shape + ".normals"), ndmin=2)
+        routed = np.loadtxt(os.path.join(routed_dir, shape + ".normals"), ndmin=2)
+        noise = np.loadtxt(os.path.join(routed_dir, shape + ".noise"), ndmin=1)
+        keep = np.abs(noise.astype(np.float32) - np.float32(t)) >= SWITCH_GAP
+        rows, left_out = rows + keep.size, left_out + int((~keep).sum())
+        diff = max(diff, float(np.abs(dense[keep] - routed[keep]).max(initial=0.0)))
+        scale = max(scale, float(np.abs(routed).max()))
+    print(f"dense vs routed switching normals: max abs diff {diff:.3e} over {rows - left_out} "
+          f"rows clear of the switch (max |normal| {scale:.3f}, rtol {BF16_ROUTED_RTOL}); "
+          f"{left_out} rows at the switch left out", flush=True)
+    if not diff <= BF16_ROUTED_RTOL * scale or left_out > 0.02 * rows:
+        fail(f"dense and routed switching normals disagree: {diff} of {scale}, "
+             f"{left_out} of {rows} rows left out")
+    return {"max_abs_diff": diff, "max_abs_normal": scale, "left_out_at_switch": left_out}
+
+
 def spread_noise_head(model, grid):
     """Rescale the switching model's noise head so that its estimates on one
     batch's grid are 0.015 + 0.01 N(0, 1)-like: half the patches take each
@@ -1954,15 +2041,20 @@ def phase14(tmp, data, dev, grids, queries, radii, bseed, caps, run_gmm, kernels
                 data_path=data, batch_size=DEVICE_BATCH, compute_dtype=dtype,
                 fold_bn=fold), kernels, card, int8=dtype == "int8", int8_per=int8_per)
             runs[label]["rms"] = check_outputs(data, runs[label]["output_dir"], "testset_one",
-                                               None)["rms"]
-            if "branch_rows" in runs[label]:
-                rows = runs[label]["branch_rows"]
-                small = rows["small_scale"] / runs[label]["n_patches"]
-                print(f"{model_name} device {label}: of the {runs[label]['n_patches']} served "
-                      f"patches the small-scale branch takes {small:.4f}, the large-scale "
-                      f"one {1 - small:.4f}", flush=True)
-                if min(rows.values()) == 0:
-                    fail(f"{model_name} {label}: a branch served no patch: {rows}")
+                                               ROUTED_BRANCHES.get(model_name))["rms"]
+            check_branch_share(f"{model_name} device {label}", runs[label])
+        if model_name in ABLATION_DENSE:
+            label = ABLATION_DENSE[model_name]
+            dtype, fold = next(d[1:] for d in ABLATION_DTYPES[model_name] if d[0] == label)
+            runs[f"{label} dense"] = dense = serve(
+                f"{model_name} device {label} dense", lambda: predict_shapes_device(
+                    run, dataset_name=f"ablation_{label}_dense", testset="testset_one.txt",
+                    data_path=data, batch_size=DEVICE_BATCH, compute_dtype=dtype,
+                    fold_bn=fold, moe_inference="dense"), kernels, card)
+            dense["rms"] = check_outputs(data, dense["output_dir"], "testset_one", None)["rms"]
+            check_branch_share(f"{model_name} device {label} dense", dense)
+            dense["routed_gap"] = check_dense_switching(
+                data, "testset_one", dense["output_dir"], runs[label]["output_dir"])
         errs = check_ablation_batch(run, acfg, idx, grids, queries, radii, bseed, caps, dev)
         ablations[model_name] = {"radii": acfg.patch_radius, "serving": runs,
                                  "plain_mups_max_abs_err": errs,
@@ -1990,7 +2082,7 @@ def phase14(tmp, data, dev, grids, queries, radii, bseed, caps, run_gmm, kernels
         ablations[m]["trained_metrics"] = check_ablation_trained(m, train_runs[m])
         ablations[m]["trained_rms"] = check_outputs(
             test_data[m], os.path.join(train_runs[m], "trained_results"),
-            ABLATION_TESTSET[m], None)["rms"]
+            ABLATION_TESTSET[m], ROUTED_BRANCHES.get(m))["rms"]
         print(f"{m}: cli.train {ablations[m]['cli_train_seconds']:.1f} s ({ABLATION_EPOCHS} "
               f"epoch, the three at once), cli.test of the trained run {secs:.1f} s (device "
               f"extraction, bf16, {ABLATION_TESTSET[m]}): RMS "
@@ -3047,7 +3139,7 @@ def main(argv=None) -> int:
     k1_err = max(k1_err, wide_err, served["max_abs_err"])
     k2_err = max(k2_err, wide_err, served["blocked_max_abs_err"])
 
-    # ---- 5. the int8 kernels against their plain version at every flagship shape ----
+    # ---- 5. the int8 kernels against their plain version at every served shape ----
     i8_err, i8_rows, i8_widest = check_int8_kernel(gen, dev, card)
 
     from nestinet_tpu_torch.core import checkpoint

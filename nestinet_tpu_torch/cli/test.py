@@ -6,8 +6,9 @@ Reloads a run directory's config, GMM and checkpoint (the best one,
 `<run>/ckpt_torch/model.pt`; in a run dir that only the JAX trainer wrote,
 its `ckpt_best/` or `ckpt/` msgpack) and writes
 `<run>/<dataset>_results/<shape>.normals` (plus `.experts` and
-`.experts_probs` for the mixture of experts) for every shape in the test
-list, on the GPU.  The model is the run config's: `experts_n_est`,
+`.experts_probs` for the mixture of experts, and `.experts`, the branch,
+and `.noise` for the switching model served routed) for every shape in the
+test list, on the GPU.  The model is the run config's: `experts_n_est`,
 `ss_norm_est`, `ms_norm_est` or `ms_sw_n_est` (`--model` names the one
 the run must hold).
 
@@ -18,9 +19,10 @@ Example:
 
 Ported: inference in bfloat16 (the default, as in the JAX CLI), float32 or
 int8, optionally with BatchNorm folded into the kernels (`--fold_bn=1`;
-default: the run config), the mixture of experts routed (sparse, the
-default) or dense and the other models dense (`--moe_inference` is then
-ignored), with host (kd-tree) or device (grid-hash ball query) patch
+default: the run config), the mixture of experts and the switching model
+routed (sparse, the default: each patch through its argmax expert or its
+branch only) or dense, and the other models dense (`--moe_inference` is
+then ignored), with host (kd-tree) or device (grid-hash ball query) patch
 extraction, on every point or on the `.pidx` subsets
 (`--sparse_patches=1`).  `--data_parallel N` serves on N ranks (one a
 GPU; `--device cpu` runs them on the CPU over gloo, `--backend gloo` lets
@@ -67,8 +69,9 @@ def main(argv=None, timeout: float | None = None):
                         "upload each cloud once and extract with the grid-hash "
                         "ball query on the GPU")
     p.add_argument("--moe_inference", type=str, default="sparse", choices=MOE_INFERENCE,
-                   help="sparse (default): each patch through its argmax expert "
-                        "only; dense: every expert on every patch (same outputs)")
+                   help="sparse (default): each patch through its argmax expert, or "
+                        "the switching model's branch, only; dense: every expert or "
+                        "branch on every patch (same normals)")
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=list(COMPUTE_DTYPES),
                    help="CNN compute dtype for serving (parameters stay float32); "

@@ -8,9 +8,11 @@ serves it, routed (`moe_inference="sparse"`, the default, on JAX's
 schedule: `infer/predict.py::SparseMoeRouter`, the batches in JAX's order,
 each shape's in turn) or dense, in the run's compute dtype or
 the one the call names (`compute_dtype`, `fold_bn`, as in `load_run`).
-It writes the same `.normals`, `.experts` and `.experts_probs` files as
-the host path; a model other than the mixture of experts is served dense
-and writes `.normals` only, as in JAX.
+It writes the same files as the host path: `.normals`, `.experts` and
+`.experts_probs` (the mixture of experts), `.normals`, `.experts` and
+`.noise` (the switching model routed), or `.normals` only (the
+single-scale and multi-scale models, and the switching model dense, as in
+JAX).
 
 Selection follows the JAX code draw for draw: the host generator is
 `RandomState(seed)`; per shape it draws `perm = rng.permutation(n)` and
@@ -52,9 +54,8 @@ from ..data.pcpnet import _load_cached
 from ..ops.ball_query import build_grid, extract_patches, window_occupancy_np
 from ..train import distributed
 from ..train.mesh import make_mesh
-from .predict import (RankOutputs, check_moe_inference, is_moe, is_routed, load_run,
-                      make_router, route_rows, serve_batch, serving_stats)
-from .writer import ShapeScatterWriter
+from .predict import (RankOutputs, check_moe_inference, is_routed, load_run, make_router,
+                      make_writer, route_rows, serve_batch, serving_stats)
 
 _RADIUS_SEED_STEP = 0x85EBCA6B
 
@@ -162,8 +163,8 @@ def _serve_shapes(run_dir: str, mesh, dev, *, dataset_name, testset, data_path, 
             ]
     counts = [c.shape[0] if q is None else q.shape[0]
               for c, q in zip(clouds, queries_per_shape)]
-    outputs = RankOutputs(mesh, lambda: ShapeScatterWriter(
-        out_dir, shape_names, counts, n_experts=cfg.n_experts if is_moe(model) else None),
+    outputs = RankOutputs(mesh, lambda: make_writer(
+        model, cfg, moe_inference, out_dir, shape_names, counts),
         route_rows(model, cfg), routed=is_routed(model, moe_inference))
     router = make_router(model, moe_inference, outputs, batch_size, dev, sparse_window_slots,
                          [min(batch_size, c - s) for c in counts

@@ -1,6 +1,7 @@
 """Streaming whole-shape inference, in float32, bfloat16 or int8,
-optionally with BatchNorm folded: the mixture of experts routed or dense,
-the single-scale, multi-scale and noise-switching models dense.
+optionally with BatchNorm folded: the mixture of experts and the
+noise-switching model routed or dense, the single-scale and multi-scale
+models dense.
 
 Counterpart of `nestinet_tpu/infer/predict.py` (`load_run:89`,
 `restore_model:154`, `predict_shapes:239`, `SparseMoeRouter:423`,
@@ -26,9 +27,16 @@ one JAX computes.  `"dense"` runs every expert on every patch and keeps
 the argmax expert's normal.  Not ported: the device-side donation, the
 asynchronous copies and the flat (8, 128)-lane layout of JAX's FIFO.
 
-A model other than the mixture of experts is served dense on its whole
-padded batch, as JAX does (`nestinet_tpu/infer/predict.py:294-330`): it
-writes `.normals` only, and `moe_inference` is ignored.
+The noise-switching model goes through the same router: its gate is the
+noise CNN on the whole padded batch, each real patch's branch is
+`noise < 0.015` (`models/switching.py::route`), and each branch runs on
+its radius's 20 channels of the parked grid in the experts' runs.  Routed,
+it writes `.normals`, `.experts` (the branch: 0 the small radius, 1 the
+large) and `.noise` (the estimate); `"dense"` runs all three CNNs on every
+patch, as JAX does, and writes `.normals` only.  The single-scale and
+multi-scale models are served dense on the whole padded batch, as JAX does
+(`nestinet_tpu/infer/predict.py:294-330`): they write `.normals` only, and
+`moe_inference` is ignored.
 
 `compute_dtype` and `fold_bn` override the run's config for one call, as
 in JAX; `None` keeps the config's.  The run dir's torch checkpoint is
@@ -192,7 +200,12 @@ def route_sparse(model, grid: torch.Tensor, real: int):
 class SparseMoeRouter:
     """JAX's `SparseMoeRouter` (`nestinet_tpu/infer/predict.py:423-778`): the
     same expert runs, with the same rows in the same order and the same pad
-    rows, in plain PyTorch on `device`.
+    rows, in plain PyTorch on `device`.  The model gives the gate each batch
+    is queued with (`gate`: the manager's probabilities [E, B], or the
+    switching model's noise [1, B]), each patch's route from its host copy
+    (`route`: the first maximum, or the branch of `noise < 0.015`) and the
+    routes' networks (`expert_on_grid`); the switching model's two branches
+    take the experts' place.
 
       * The window: W = max(2, window_slots), or max(2, 8192 // B) when
         `window_slots` is None or 0.  The FIFO holds W padded grids of B
@@ -204,9 +217,9 @@ class SparseMoeRouter:
       * Batch i (`begin_batch`, `commit`): from i = W on, slot i mod W is
         evicted first: for e = 0..E-1, the bucket's leading rows parked in
         that slot run now (`:733-751`).  Then the grid is parked in the
-        slot and its probabilities queued; the oldest queued batch, while
-        more than `depth` are queued, is processed: argmax (the first
-        maximum), each winner's rows appended to its expert's bucket in
+        slot and its gate queued; the oldest queued batch, while more than
+        `depth` are queued, is processed: each patch routed (`route`), each
+        winner's rows appended to its expert's bucket in
         `np.unique` order, then for e = 0..E-1, while the bucket holds B
         rows or more, exactly B run (`:753-778`).
       * `finish`: the queue processed, then for e = 0..E-1 the buckets
@@ -215,15 +228,16 @@ class SparseMoeRouter:
         most that, else to B, with the FIFO's slot 0, row 0 as the slot
         holds it when the run starts (`:639-654`); the pad rows go through
         the expert, since they set its int8 scales, and their normals are
-        dropped.  The expert takes its channel slice of the gathered rows
+        dropped; a job's counter `pad_rows` adds them up (`core/profiling.py`).
+        The expert takes its channel slice of the gathered rows
         (`expert_on_grid`, as `_expert_on_buf` `:839-873`).
 
-    Outputs reach `emit(normals [n, 3], ids [n], probabilities [n, E])` in
-    patch order, as NumPy arrays.
+    Outputs reach `emit(normals [n, 3], ids [n], gate [n, G])` in patch
+    order, as NumPy arrays.
 
     On the ranks of a data-parallel mesh (`mesh.size` > 1) every rank feeds
     every global batch through `serve`, in the global order: each round,
-    the ranks all-gather their batches' grids and probabilities (`reals`
+    the ranks all-gather their batches' grids and gates (`reals`
     gives every global batch's real patch count), so every rank holds the
     whole FIFO and computes the one schedule.  Rank r executes run k when
     k mod N = r; the others mark its patches done with zero normals, and
@@ -249,8 +263,8 @@ class SparseMoeRouter:
         n = model.n_experts
         self.buckets = [[] for _ in range(n)]  # segments (patch ids, FIFO rows, batch)
         self.bucket_count = [0] * n
-        self.queue = []  # (batch, real, probabilities [E, real]) not yet processed
-        self.meta = []  # (first patch, ids [real], probabilities [real, E]), batch order
+        self.queue = []  # (batch, real, gate [G, real]) not yet processed
+        self.meta = []  # (first patch, ids [real], gate [real, G]), batch order
         self.own = []
         # the patches not yet emitted: from the oldest batch still in the FIFO on
         self.R = (self.W + 1) * batch_size
@@ -269,7 +283,7 @@ class SparseMoeRouter:
 
     def commit(self, real: int, probs: torch.Tensor, grid: torch.Tensor) -> None:
         """Park a batch's padded grid [B, r, r, r, C] in its slot and queue
-        its probabilities [E, B]."""
+        its gate [G, B]."""
         slot = self.batch_i % self.W
         b = self.batch_size
         self.fifo[slot * b:(slot + 1) * b].copy_(grid)
@@ -284,7 +298,7 @@ class SparseMoeRouter:
         if self.ranks > 1:
             while self.round < -(-len(self.reals) // self.ranks):
                 self.serve(0, torch.zeros_like(self.fifo[:self.batch_size]), torch.zeros(
-                    (self.model.n_experts, self.batch_size), device=self.fifo.device))
+                    (self.model.gate_rows, self.batch_size), device=self.fifo.device))
         while self.queue:
             self._process(*self.queue.pop(0))
         for e in range(len(self.buckets)):
@@ -297,8 +311,8 @@ class SparseMoeRouter:
                 "window_slots": self.W}
 
     def serve(self, real: int, grid: torch.Tensor, probs: torch.Tensor) -> None:
-        """This rank's next batch (`real` real rows of the padded grid, the
-        manager's probabilities [E, B]): on one rank straight through
+        """This rank's next batch (`real` real rows of the padded grid, its
+        gate [G, B]): on one rank straight through
         `begin_batch` and `commit`; on several, every rank's batch of the
         round, in the global order."""
         if self.ranks == 1:
@@ -320,8 +334,8 @@ class SparseMoeRouter:
 
     # ---- internals ----
     def _process(self, b: int, real: int, probs: torch.Tensor) -> None:
-        probs = profiling.fetch("fetch.probs", probs).numpy()  # [E, real]
-        ids = np.argmax(probs, axis=0)
+        probs = profiling.fetch("fetch.probs", probs).numpy()  # [G, real]
+        ids = self.model.route(probs)
         base = self.n_patches
         idxs = base + np.arange(real, dtype=np.int64)
         flats = (b % self.W) * self.batch_size + np.arange(real, dtype=np.int64)
@@ -380,6 +394,7 @@ class SparseMoeRouter:
         if k % self.ranks != self.rank:
             self._complete(idxs, None)
             return
+        profiling.count("pad_rows", flats.shape[0] - n)
         with profiling.span("router.expert", device=True):
             index = profiling.upload("upload.index", flats, self.fifo.device)
             normals = self.model.expert_on_grid(e, self.fifo.index_select(0, index))[:n]
@@ -430,13 +445,17 @@ def is_moe(model) -> bool:
     return isinstance(model, ExpertsNormEst)
 
 
+def is_switching(model) -> bool:
+    return isinstance(model, SwitchingNormEst)
+
+
 def route_rows(model, cfg) -> np.ndarray:
     """Zeroed patch counts per route of a serving call: per expert for the
     mixture of experts, per branch (small-scale, large-scale) for the
     switching model, none for the other models."""
     if is_moe(model):
         return np.zeros(cfg.n_experts, np.int64)
-    return np.zeros(2 if isinstance(model, SwitchingNormEst) else 0, np.int64)
+    return np.zeros(2 if is_switching(model) else 0, np.int64)
 
 
 def serve_grid(model, grid: torch.Tensor, real: int, rows: np.ndarray):
@@ -447,7 +466,7 @@ def serve_grid(model, grid: torch.Tensor, real: int, rows: np.ndarray):
     through `SparseMoeRouter`."""
     if not is_moe(model):
         outputs = model.forward_grid(grid)
-        if isinstance(model, SwitchingNormEst):
+        if is_switching(model):
             small = int(profiling.fetch("fetch.outputs",
                                         (outputs["noise_pred"][:real] < NOISE_SWITCH_THRESHOLD).sum()))
             rows += (small, real - small)
@@ -465,7 +484,7 @@ def _host(t) -> np.ndarray | None:
 
 def append_outputs(writer, rows: np.ndarray, normals, experts, probs) -> None:
     """Outputs in patch order (tensors or NumPy arrays) to the writer; the
-    mixture of experts' ids are counted into `rows`."""
+    experts' or branches' ids are counted into `rows`."""
     if experts is None:
         writer.append(_host(normals))
         return
@@ -565,13 +584,26 @@ class RankOutputs:
 
 
 def is_routed(model, moe_inference: str) -> bool:
-    return is_moe(model) and moe_inference == "sparse"
+    return (is_moe(model) or is_switching(model)) and moe_inference == "sparse"
+
+
+def make_writer(model, cfg, moe_inference: str, out_dir: str, shape_names,
+                counts) -> ShapeScatterWriter:
+    """The call's writer: `.normals`, with the mixture of experts' `.experts`
+    and `.experts_probs`, or the routed switching model's `.experts` (its
+    branches) and `.noise`."""
+    if is_moe(model):
+        return ShapeScatterWriter(out_dir, shape_names, counts, n_experts=cfg.n_experts)
+    if is_routed(model, moe_inference):
+        return ShapeScatterWriter(out_dir, shape_names, counts, n_experts=model.gate_rows,
+                                  gate_file="noise")
+    return ShapeScatterWriter(out_dir, shape_names, counts)
 
 
 def make_router(model, moe_inference: str, outputs: RankOutputs, batch_size: int, dev,
                 window_slots: int | None, reals: list) -> SparseMoeRouter | None:
-    """The router of a routed mixture-of-experts call, else None; `reals`:
-    every global batch's real patch count."""
+    """The router of a routed call (the mixture of experts or the switching
+    model), else None; `reals`: every global batch's real patch count."""
     if not is_routed(model, moe_inference):
         return None
     return SparseMoeRouter(model, batch_size, outputs.add, device=dev,
@@ -579,12 +611,12 @@ def make_router(model, moe_inference: str, outputs: RankOutputs, batch_size: int
 
 
 def serve_batch(model, router, outputs: RankOutputs, grid: torch.Tensor, real: int) -> None:
-    """One padded batch's grid this rank computed: routed, dense, or the
-    other models' forward."""
+    """One padded batch's grid this rank computed: routed (the gate here,
+    the routes' runs in the router), dense, or the other models' forward."""
     outputs.served(real)
     with profiling.span("batch.model", device=True):
         out = (serve_grid(model, grid, real, outputs.rows) if router is None
-               else model.manager_probs(grid))
+               else model.gate(grid))
     if router is None:
         outputs.add(*out)
     else:
@@ -661,9 +693,8 @@ def _predict_shapes(run_dir: str, *, dataset_name, testset, data_path, batch_siz
         sparse_patches=sparse_patches,
         shard=(mesh.rank, mesh.size, "batches") if mesh.size > 1 else None,
     )
-    outputs = RankOutputs(mesh, lambda: ShapeScatterWriter(
-        out_dir, dataset.shape_names, dataset.shape_patch_count,
-        n_experts=cfg.n_experts if is_moe(model) else None,
+    outputs = RankOutputs(mesh, lambda: make_writer(
+        model, cfg, moe_inference, out_dir, dataset.shape_names, dataset.shape_patch_count,
     ), route_rows(model, cfg), routed=is_routed(model, moe_inference))
     total = sum(dataset.shape_patch_count)  # the loader pads the stream's last batch
     router = make_router(model, moe_inference, outputs, batch_size, dev, sparse_window_slots,

@@ -6,7 +6,9 @@ Streaming inference sees one flat stream of patches (all points of all
 shapes, in order); the writer scatters per-batch outputs back into
 per-shape buffers and writes `<shape>.normals`, `.experts` and
 `.experts_probs` when a shape completes, byte-identical to np.savetxt
-through the port's `core/textio.py`.
+through the port's `core/textio.py`.  `n_experts` is the number of the
+gate's columns and `gate_file` their file's suffix: the routed switching
+model writes its noise estimate, one column, to `.noise`.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ from ..core import profiling, textio
 
 class ShapeScatterWriter:
     def __init__(self, output_dir: str, shape_names, shape_patch_counts,
-                 n_experts: int | None = None):
+                 n_experts: int | None = None, gate_file: str = "experts_probs"):
         self.output_dir = output_dir
+        self.gate_file = gate_file
         os.makedirs(output_dir, exist_ok=True)
         self.shape_names = list(shape_names)
         self.counts = list(shape_patch_counts)
@@ -74,7 +77,7 @@ class ShapeScatterWriter:
                     fmt="%i",
                 )
                 textio.savetxt(
-                    os.path.join(self.output_dir, name + ".experts_probs"),
+                    os.path.join(self.output_dir, f"{name}.{self.gate_file}"),
                     self.expert_probs,
                 )
             self.written.append(name)

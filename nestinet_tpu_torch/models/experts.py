@@ -10,8 +10,8 @@ Counterpart of `nestinet_tpu/models/experts.py`:
   * dense inference (`forward_grid`): every expert runs on every patch,
     the argmax expert's normal is kept (first maximum on ties, as
     jnp.argmax); routed inference (`infer/predict.py::SparseMoeRouter`)
-    runs `manager_probs` and then each patch's argmax expert only, through
-    the same two grid-level methods;
+    runs `manager_probs` (`gate`) and then each patch's argmax expert only
+    (`route`), through the same two grid-level methods;
   * training (`forward(..., training=True, bn_momentum=m)`) runs every
     expert on every patch, because the loss needs all of them; `loss`
     wraps `moe_loss` with the config's loss and expert loss types
@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from . import backbones
@@ -158,6 +159,21 @@ class ExpertsNormEst(ModelBase):
         [E, B] (`apply_manager_on_grid`, JAX `experts.py:219-225`)."""
         logits = self.manager(grid.permute(0, 4, 1, 2, 3), training, bn_momentum)  # NCDHW
         return torch.softmax(logits.to(torch.float32), dim=-1).t()
+
+    @property
+    def gate_rows(self) -> int:
+        return self.n_experts
+
+    def gate(self, grid: torch.Tensor) -> torch.Tensor:
+        """What the router decides on (`infer/predict.py::SparseMoeRouter`):
+        the manager's probabilities [E, B]."""
+        return self.manager_probs(grid)
+
+    @staticmethod
+    def route(gate: np.ndarray) -> np.ndarray:
+        """Each patch's expert from the host copy of the probabilities
+        [E, n]: the first maximum, as jnp.argmax."""
+        return np.argmax(gate, axis=0)
 
     def expert_on_grid(self, i: int, grid: torch.Tensor, training: bool = False,
                        bn_momentum=None) -> torch.Tensor:

@@ -11,10 +11,19 @@ last layer starts at TruncatedNormal(stddev=1e-3) weights and a bias of
 (`:37-57`).  The haiku tree prefixes each CNN's modules with `noise_`,
 `large_` or `small_` (`noise_incep0/...`, `noise_fc1/...`); here they are
 the `noise`, `large` and `small` ConvNets.
+
+Dense serving (`forward_grid`) runs the three CNNs on every patch, as JAX
+does.  Routed serving (`infer/predict.py::SparseMoeRouter`) runs the noise
+CNN on the whole padded batch (`gate`), decides each patch's branch on the
+host from the noise (`route`: 0, the small radius, where noise < 0.015,
+else 1), and runs each patch through its branch only (`expert_on_grid`),
+which gives the dense path's normal.  Both compare the noise in float32,
+which decides as bfloat16 does on every bfloat16 value.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import backbones
@@ -28,6 +37,10 @@ NOISE_HEAD_INIT_STDDEV = 1e-3
 class SwitchingNormEst(ModelBase):
     # {torch net: haiku prefix} (convert.py), in JAX's call order
     HAIKU_NETS = {"noise": "noise_", "large": "large_", "small": "small_"}
+    # the router's routes (`infer/predict.py::SparseMoeRouter`): branch 0 the
+    # small radius, 1 the large; its gate is one row, the noise
+    n_experts = 2
+    gate_rows = 1
 
     def __init__(self, cfg, gmm):
         super().__init__(cfg, gmm)
@@ -42,14 +55,33 @@ class SwitchingNormEst(ModelBase):
     def forward_grid(self, grid: torch.Tensor, training: bool = False, bn_momentum=None,
                      dropout_masks=None) -> dict:
         """{"n_pred": [B, 3], "noise_pred": [B]} in float32 from a
-        [B, r, r, r, 40] grid (the model has no dropout)."""
-        x = grid.permute(0, 4, 1, 2, 3)
-        small, large = x[:, :20], x[:, 20:]
-        noise = self.noise(large, training, bn_momentum)[:, 0]
-        n_large = self.large(large, training, bn_momentum)
-        n_small = self.small(small, training, bn_momentum)
+        [B, r, r, r, 40] grid: all three CNNs on every patch (the model has
+        no dropout)."""
+        noise = self.gate(grid, training, bn_momentum)[0]
+        n_large = self.expert_on_grid(1, grid, training, bn_momentum)
+        n_small = self.expert_on_grid(0, grid, training, bn_momentum)
         n_est = torch.where((noise < NOISE_SWITCH_THRESHOLD)[:, None], n_small, n_large)
-        return {"n_pred": n_est.to(torch.float32), "noise_pred": noise.to(torch.float32)}
+        return {"n_pred": n_est, "noise_pred": noise}
+
+    def gate(self, grid: torch.Tensor, training: bool = False, bn_momentum=None) -> torch.Tensor:
+        """The noise CNN on the large radius's channels of a [B, r, r, r, 40]
+        grid -> the float32 noise estimate [1, B]."""
+        x = grid[..., 20:].permute(0, 4, 1, 2, 3)
+        return self.noise(x, training, bn_momentum)[:, 0].to(torch.float32)[None]
+
+    @staticmethod
+    def route(gate: np.ndarray) -> np.ndarray:
+        """Each patch's branch from the host copy of its noise [1, n]: 0 (the
+        small radius) where noise < 0.015 in float32, else 1, a NaN too, as
+        `forward_grid`'s `torch.where`."""
+        return np.where(gate[0] < np.float32(NOISE_SWITCH_THRESHOLD), 0, 1)
+
+    def expert_on_grid(self, i: int, grid: torch.Tensor, training: bool = False,
+                       bn_momentum=None) -> torch.Tensor:
+        """Branch `i` (0 small, 1 large) on its radius's 20 channels of a
+        [b, r, r, r, 40] grid -> float32 normals [b, 3]."""
+        x = grid[..., 20 * i:20 * (i + 1)].permute(0, 4, 1, 2, 3)
+        return (self.small, self.large)[i](x, training, bn_momentum).to(torch.float32)
 
     def forward(self, points: torch.Tensor, n_eff: torch.Tensor, training: bool = False,
                 bn_momentum=None, dropout_masks=None) -> dict:

@@ -5,7 +5,9 @@ For each of the single-scale, multi-scale and noise-switching models
 `tests/test_torch_ablations.py`), on tiny synthetic sets (300 points a
 shape; the switching benchmark for the switching model):
   * the port's `cli.train` runs two epochs and its `cli.test` serves the
-    run with device extraction: metrics for both epochs, the switching
+    run dense (`--moe_inference dense`, JAX's path for these models; the
+    switching model served routed is `tests/test_torch_switching_routed.py`'s)
+    with device extraction: metrics for both epochs, the switching
     model's noise_loss among them, finite `.normals` of every point, no
     `.experts` files, and a finite RMS; serving the run on both extraction
     paths reports the switching model's patches per branch
@@ -119,7 +121,7 @@ def test_port_trains_and_serves(data, tmp_path, monkeypatch, model):
     with narrow_backbones():
         cli_train.main(train_argv(model, data_path, run) + ["--device", "cpu"])
         cli_test.main(serve_argv(run, data_path, "port", "--extraction", "device",
-                                "--device", "cpu", "--model", model))
+                                "--device", "cpu", "--model", model, "--moe_inference", "dense"))
     with open(os.path.join(run, "metrics.jsonl")) as f:
         metrics = [json.loads(line) for line in f]
     assert [m["kind"] for m in metrics] == ["train", "eval"] * 2
@@ -139,7 +141,7 @@ def test_port_trains_and_serves(data, tmp_path, monkeypatch, model):
         with narrow_backbones():
             stats = predict(run, dataset_name="stats", testset="testset_two.txt",
                             data_path=data_path, batch_size=64, compute_dtype="float32",
-                            device="cpu", **extra)
+                            moe_inference="dense", device="cpu", **extra)
         assert "expert_rows" not in stats
         if model != "ms_sw_n_est":
             assert "branch_rows" not in stats
@@ -165,7 +167,8 @@ def test_port_serves_the_jax_clis_run_dir(data, tmp_path, monkeypatch, model):
         jax_cli_train.main(train_argv(model, data_path, run))
         jax_cli_test.main(serve_argv(run, data_path, "jax"))
         assert not checkpoint.has_torch_checkpoint(run)
-        cli_test.main(serve_argv(run, data_path, "port", "--device", "cpu"))
+        cli_test.main(serve_argv(run, data_path, "port", "--device", "cpu",
+                                "--moe_inference", "dense"))
     shapes, want = read_outputs(data_path, os.path.join(run, "jax_results"))
     _, got = read_outputs(data_path, os.path.join(run, "port_results"))
     got, want = (np.concatenate([d[s] for s in shapes]) for d in (got, want))

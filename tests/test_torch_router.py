@@ -42,6 +42,7 @@ import torch  # noqa: E402
 
 from nestinet_tpu.infer.predict import SparseMoeRouter as JaxRouter  # noqa: E402
 from nestinet_tpu_torch.infer.predict import SparseMoeRouter  # noqa: E402
+from nestinet_tpu_torch.models.experts import ExpertsNormEst  # noqa: E402
 from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: E402,F401
 
 torch.set_num_threads(1)
@@ -76,11 +77,13 @@ def _jax_stub(n_experts: int, runs: list):
 
 
 class _PortStub:
-    """The port's model as its router sees it."""
+    """The port's model as its router sees it: the mixture of experts'
+    route, the first maximum of the probabilities."""
 
     resolution = 1
     compute_dtype = torch.float32
     cfg = types.SimpleNamespace(n_scales=1)
+    route = staticmethod(ExpertsNormEst.route)
 
     def __init__(self, n_experts: int, runs: list):
         self.n_experts = n_experts
