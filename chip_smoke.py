@@ -7,11 +7,12 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
   1. device: require CUDA, print the card's name and power limit, turn
      TF32 off (the JAX reference computes in float32);
-  2. build: compile the three CUDA libraries (`csrc/mups_kernel.cu`, the
+  2. build: compile the four CUDA libraries (`csrc/mups_kernel.cu`, the
      two MuPS kernels; `csrc/int8_conv.cu`, the int8 convs, k > 1;
-     `csrc/int8_gemm.cu`, the int8 GEMM of the k = 1 layers) with nvcc
-     into the gitignored build directory, one nvcc per library, started
-     together; print their ptxas lines;
+     `csrc/int8_gemm.cu`, the int8 GEMM of the k = 1 layers;
+     `csrc/max_pool.cu`, the backbones' max pool) with nvcc into the
+     gitignored build directory, one nvcc per library, started together;
+     print their ptxas lines;
   3. MuPS kernel (one row per ticket of a persistent grid) against its
      plain PyTorch version at the serving shapes (384 and 768 rows of 512
      points, 512 Gaussians), unpadded, randomly padded and with n_eff = 0
@@ -43,6 +44,18 @@ and prints no result):
      the same int8 operands as the yardstick at the 1x1x1 convs and FCs;
      the plain version's time at the widest conv and the widest k = 1
      layer;
+ 5b. the max pool kernel against aten's `F.max_pool3d` (the plain version,
+     behind its -inf pad) at every pool of the served backbones, of
+     CONV_NET_3G and of TINY, at B = 256, 37, 64 and 1024, and at three
+     shapes of the element-wise kernel at B = 37, in bfloat16 and float32
+     with NaN (two payloads), -inf and signed zeros planted: bits
+     identical, one launch a call; at B = 256 and 1024 in bfloat16 each
+     served shape timed on the device beside its byte bound, the plain
+     version and aten's pool alone (`library_ms`), with the launches a call
+     of each; every serving path
+     below must launch the kernel, phase 11 counts one launch a pool in one
+     manager call and one expert run (3 and 3) in each dtype, and phase 14a
+     two a CNN of each ablation model;
   6. device extraction: one batch of 256 queries per radius of the
      flagship config on one synthetic shape, extracted on the card and on
      the CPU from the same inputs: grids, selected rows, hit masks and
@@ -284,6 +297,11 @@ INT8_ROUTED_RUN = max(32, INT8_BATCH // 4)
 # run and a lone patch
 INT8_SMALL_BATCHES = (INT8_ROUTED_RUN, 1)
 INT8_COUNTERS = ("int8_conv3d", "int8_gemm")  # the int8 kernels' launch counts
+POOL_BATCH_WIDE = 1024  # phase 5b also holds and times the max pool at B = 1024
+POOL_TIMED_CALLS = 20  # phase 5b: the calls a timing averages, at least
+# phase 5b: (D, H, W), kernel, stride of rows no fixed instance takes, held at B = 37
+POOL_ELEMENT_WISE = (((5, 5, 5), 2, 2), ((4, 5, 7), 3, 2), ((6, 6, 6), 3, 1))
+L2_BYTES = 50 * 2**20  # the H100's L2 cache
 KERNEL_ATOL = 1e-5
 GRAD_ATOL = 1e-4
 NORMALS_ATOL = 1e-4
@@ -330,6 +348,10 @@ ABLATION_TESTSET = {"ss_norm_est": "testset_one", "ms_norm_est": "testset_one",
 SWITCH_POINTS = 2000  # points per shape of the switching benchmark
 # routes of the ablation models served routed (the default): the switching model's branches
 ROUTED_BRANCHES = {"ms_sw_n_est": 2}
+# max pool launches of one call outside autograd: two pools a CNN, the switching
+# model's three CNNs in its dense forward, its gate and a branch one CNN each
+ABLATION_POOLS = {"ss_norm_est": {"forward": 2}, "ms_norm_est": {"forward": 2},
+                  "ms_sw_n_est": {"forward": 6, "gate": 2, "branch": 2}}
 # 30 training and 10 validation shapes: 3 steps of 256 an epoch, 1 validation batch
 SWITCH_PATCHES_PER_SHAPE = 32
 SWITCH_GAP = 1e-5  # noise estimates this close to 0.015 may take either branch
@@ -821,6 +843,150 @@ def check_int8_kernel(gen, dev, card):
     return max_err, rows, picks
 
 
+def served_pools() -> list:
+    """(C, R, k, s) of the input of every max pool of the served backbones
+    (the manager, both expert widths, SW = MS = SS), of CONV_NET_3G and of
+    TINY on both grids."""
+    from nestinet_tpu_torch.models import backbones as bb
+
+    nets = [(bb.CONV_NET_8G, 8), (bb.expert_backbone_8g(128 // 3), 8),
+            (bb.expert_backbone_8g(128), 8), (bb.SW_BACKBONE, 8), (bb.MS_BACKBONE_8G, 8),
+            (bb.SS_BACKBONE, 8), (bb.CONV_NET_3G, 3), (bb.TINY, 8), (bb.TINY, 3)]
+    return sorted({p for spec, r in nets for p in bb.pool_inputs(spec, 60, r)})
+
+
+def planted_on_card(gen, dev, shape, dtype):
+    """Normal values in `dtype` on the card, about 2% each of two NaNs (the
+    canonical quiet NaN and all bits set), 4% each -inf, +0 and -0, and some
+    whole rows of zeros of both signs and of -inf."""
+    import torch
+
+    x = torch.randn(shape, generator=gen, device=dev)
+    pick = torch.rand(shape, generator=gen, device=dev)
+    neg_zero = torch.full((), -0.0, device=dev)
+    x = torch.where((pick >= 0.04) & (pick < 0.08), float("-inf"), x)
+    x = torch.where((pick >= 0.08) & (pick < 0.12), 0.0, x)
+    x = torch.where((pick >= 0.12) & (pick < 0.16), neg_zero, x)
+    which = torch.rand(shape[:-1] + (1,), generator=gen, device=dev)
+    signs = torch.where(torch.rand(shape, generator=gen, device=dev) < 0.5, 0.0, neg_zero)
+    x = torch.where(which < 0.05, signs, torch.where(which < 0.08, float("-inf"), x))
+    x = x.to(dtype)
+    ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    bits = x.view(ints)
+    bits[pick < 0.02] = torch.tensor(float("nan"), dtype=dtype).view(ints).item()
+    bits[(pick >= 0.02) & (pick < 0.04)] = -1
+    return x
+
+
+def device_ms(calls, attempts: int = 3) -> tuple:
+    """(device ms, device launches) a call of the calls in `calls`, each run
+    once after one warm-up round, from torch.profiler's device activity; a
+    profile that recorded no device time (CUPTI drops one now and then) is
+    taken again, up to `attempts` profiles."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in calls:
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        if events:
+            return (sum(e.self_device_time_total for e in events) / 1e3 / len(calls),
+                    sum(e.count for e in events) / len(calls))
+    fail(f"torch.profiler recorded no device time in {attempts} profiles")
+
+
+def check_max_pool(dev, card):
+    """Phase 5b: the max pool kernel against aten's `F.max_pool3d` on the
+    card (`ops/nn.py::max_pool3d_reference`) at every served pool shape
+    (`served_pools`) at B = 256, 37, 64 (the router's padded run) and 1024,
+    and at the shapes of `POOL_ELEMENT_WISE` at B = 37, in bfloat16 and
+    float32, NaN (two payloads), -inf and signed zeros planted: bits
+    identical, one launch a call.  At B = 256 and 1024 in
+    bfloat16 each shape is timed on the device (`device_ms`, over copies of
+    the input that together exceed the L2 cache twice, so that each call
+    reads from device memory) beside its byte bound, the plain version (the
+    -inf pad copy and aten's pool) and aten's pool alone (`library_ms`, on
+    the padded input), with the launches a call of each.  Returns the
+    timing rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from nestinet_tpu_torch.ops import nn as tnn
+    from nestinet_tpu_torch.ops.kernels import pool_cuda
+
+    t5 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    pools = served_pools()
+    cases = [(B, C, (R,) * 3, k, s) for (C, R, k, s), B in itertools.product(
+        pools, (INT8_BATCH, INT8_SUB_BATCH, INT8_ROUTED_RUN, POOL_BATCH_WIDE))]
+    cases += [(INT8_SUB_BATCH, 24, size, k, s) for size, k, s in POOL_ELEMENT_WISE]
+    rows, n_cases = [], 0
+    for (B, C, size, k, s), dtype in itertools.product(cases, (torch.bfloat16, torch.float32)):
+        x = planted_on_card(gen, dev, (B, C, *size), dtype)
+        ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        pool_cuda.POOL.reset_launches()
+        got = pool_cuda.max_pool3d_cuda(x, k, s)
+        launches = pool_cuda.POOL.launches["max_pool3d"]
+        want = tnn.max_pool3d_reference(x, k, s)
+        torch.cuda.synchronize()
+        n_cases += 1
+        if launches != 1:
+            fail(f"max pool {(B, C, size, k, s)} {dtype}: {launches} launches")
+        if got.shape != want.shape:
+            fail(f"max pool {(B, C, size, k, s)}: shape {tuple(got.shape)}, aten's "
+                 f"{tuple(want.shape)}")
+        n_diff = int((got.view(ints) != want.view(ints)).sum())
+        if n_diff:
+            fail(f"max pool {(B, C, size, k, s)} {dtype}: {n_diff} outputs differ from aten's "
+                 f"bits")
+        R = size[0]
+        if (dtype != torch.bfloat16 or B not in (INT8_BATCH, POOL_BATCH_WIDE)
+                or not pool_cuda.fixed_row(size[-1], k, s)):
+            continue
+        nbytes = (x.numel() + got.numel()) * x.element_size()
+        copies = [x] + [x.clone() for _ in range(-(-2 * L2_BYTES // nbytes) - 1)]
+        padded = [tnn._pad_same(c, k, s, value=float("-inf")) for c in copies]
+        rounds = -(-POOL_TIMED_CALLS // len(copies))
+        ms, n = device_ms([lambda c=c: pool_cuda.max_pool3d_cuda(c, k, s)
+                           for c in copies] * rounds)
+        plain_ms, plain_n = device_ms([lambda c=c: tnn.max_pool3d_reference(c, k, s)
+                                       for c in copies] * rounds)
+        lib_ms, lib_n = device_ms([lambda c=c: F.max_pool3d(c, k, s) for c in padded] * rounds)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({"B": B, "C": C, "R": R, "k": k, "s": s, "ms": ms, "launches": n,
+                     "bound_ms": bound_ms, "bound_pct": 100 * bound_ms / ms, "bytes": nbytes,
+                     "plain_ms": plain_ms, "plain_launches": plain_n, "library_ms": lib_ms,
+                     "library_launches": lib_n})
+        print(f"time: max pool [B={B}, C={C}, {R}^3, k={k}, s={s}, bf16]: {ms:.4f} ms of "
+              f"device time in {n:g} launch, {100 * bound_ms / ms:.1f}% of its byte bound "
+              f"{bound_ms:.4f} ms ({nbytes} bytes); plain {plain_ms:.4f} ms in {plain_n:g} "
+              f"launches, F.max_pool3d {lib_ms:.4f} ms in {lib_n:g} launches [{card}]", flush=True)
+        del copies, padded
+    print(f"phase 5b: the max pool identical to aten's at {n_cases} cases ({len(pools)} served "
+          f"shapes at 4 batches and {len(POOL_ELEMENT_WISE)} of the element-wise kernel, 2 "
+          f"dtypes), one launch each; the phase took {time.perf_counter() - t5:.1f} s",
+          flush=True)
+    return rows
+
+
+def pool_launches(fn) -> int:
+    """The max pool kernel's launches in one call of `fn` outside autograd."""
+    import torch
+
+    from nestinet_tpu_torch.ops.kernels import pool_cuda
+
+    pool_cuda.POOL.reset_launches()
+    with torch.inference_mode():
+        fn()
+    return pool_cuda.POOL.launches["max_pool3d"]
+
+
 def device_launches(fn) -> int:
     """Device launches (kernels and memsets) of one call of `fn`, from
     torch.profiler's device activity."""
@@ -1025,6 +1191,9 @@ def serve(name, fn, kernels, card, int8: bool = False, int8_per=None):
              f"{stats['n_batches']}")
     if int8 != (int8_launches(launches) > 0):
         fail(f"{name}: {int8_launches(launches)} int8 kernel launches")
+    if launches.get("max_pool3d", 0) < stats["n_batches"]:
+        fail(f"{name}: {launches.get('max_pool3d', 0)} max pool launches for "
+             f"{stats['n_batches']} batches")
     if int8 and int8_per is not None:
         check_int8_launches(name, launches, stats["n_batches"], stats.get("expert_runs", 0),
                             int8_per)
@@ -1907,6 +2076,18 @@ def check_ablation_batch(run, cfg, idx, grids, queries, radii, seed, caps, dev):
     with torch.inference_mode():
         points, n_eff = extract_batch([grids[i] for i in idx], queries, [radii[i] for i in idx],
                                       seed, num_point=512, caps=[caps[i] for i in idx])
+        grid = model.mups_grid(points, n_eff)
+    pools = {"forward": pool_launches(lambda: model.forward_grid(grid))}
+    if cfg.model == "ms_sw_n_est":
+        pools.update(gate=pool_launches(lambda: model.gate(grid)),
+                     branch=pool_launches(lambda: model.expert_on_grid(0, grid)))
+    want_pools = ABLATION_POOLS[cfg.model]
+    print(f"{cfg.model}: the max pool kernel's launches {pools} (one a pool: {want_pools})",
+          flush=True)
+    if pools != want_pools:
+        fail(f"{cfg.model}: the max pool kernel's launches {pools}, where the pools make "
+             f"{want_pools}")
+    with torch.inference_mode():
         out_k = model(points, n_eff)
         rows = mups_ops.tdmfv_n_est_reference(points.reshape(-1, 512, 3), model.gmm_w,
                                               model.gmm_mu, model.gmm_sigma, n_eff.reshape(-1))
@@ -3090,12 +3271,12 @@ def main(argv=None) -> int:
 
     # ---- 2. build: one nvcc per library, started together ----
     from nestinet_tpu_torch.ops import mups as mups_ops
-    from nestinet_tpu_torch.ops.kernels import int8_cuda, mups_cuda
+    from nestinet_tpu_torch.ops.kernels import int8_cuda, mups_cuda, pool_cuda
     from nestinet_tpu_torch.ops.kernels.build import build_all
     from nestinet_tpu_torch.scripts import mups_kernel_exp
 
     kernel = mups_cuda.KERNEL
-    kernels = (kernel, *int8_cuda.KERNELS)
+    kernels = (kernel, *int8_cuda.KERNELS, pool_cuda.POOL)
     t0 = time.perf_counter()
     paths = build_all(kernels)
     secs = time.perf_counter() - t0
@@ -3141,6 +3322,9 @@ def main(argv=None) -> int:
 
     # ---- 5. the int8 kernels against their plain version at every served shape ----
     i8_err, i8_rows, i8_widest = check_int8_kernel(gen, dev, card)
+
+    # ---- 5b. the max pool kernel against aten's at every served pool shape ----
+    pool_rows = check_max_pool(dev, card)
 
     from nestinet_tpu_torch.core import checkpoint
     from nestinet_tpu_torch.core.config import Config
@@ -3281,6 +3465,8 @@ def main(argv=None) -> int:
             mgr_split = {"f32": device_time_split(lambda: model.manager_probs(grid))}
             mgr_ms = {"f32": cuda_median_ms(lambda: model.manager_probs(grid), warmup=2,
                                             iters=10)}
+        pools = {"f32": (pool_launches(lambda: model.manager_probs(grid)),
+                         pool_launches(lambda: model.expert_on_grid(0, grid)))}
         gaps, launch_counts, expert_split = {}, {}, {}
         for label, dtype, fold in DTYPE_PATHS:
             _, _, _, m = load_run(rd.path, dev, dtype, fold)
@@ -3301,6 +3487,8 @@ def main(argv=None) -> int:
                   f"{gaps[label]['max_angle_deg_vs_f32']:.2f} deg (random weights)", flush=True)
             if dtype == "bfloat16" and not diff <= BF16_ROUTED_RTOL * scale:
                 fail(f"{label}: normals differ between routed and dense serving: {diff}")
+            pools[label] = (pool_launches(lambda: m.manager_probs(g)),
+                            pool_launches(lambda: m.expert_on_grid(0, g)))
             with torch.inference_mode():
                 mgr_split[label] = device_time_split(lambda: m.manager_probs(g))
                 mgr_ms[label] = cuda_median_ms(lambda: m.manager_probs(g), warmup=2, iters=10)
@@ -3308,6 +3496,14 @@ def main(argv=None) -> int:
                     launch_counts[label] = int8_launch_counts(m, g, real)
                     expert_split[label] = device_time_split(lambda: m.expert_on_grid(0, g))
             del m
+        from nestinet_tpu_torch.models import backbones
+
+        want_pools = (len(backbones.pool_inputs(backbones.CONV_NET_8G, 60, 8)),
+                      len(backbones.pool_inputs(backbones.expert_backbone_8g(128 // 3), 20, 8)))
+        print(f"launches: the max pool kernel in one manager call and one expert run "
+              f"{pools} (one a pool: {want_pools})", flush=True)
+        if any(p != want_pools for p in pools.values()):
+            fail(f"the max pool kernel's launches {pools}, where the pools make {want_pools}")
         for label, (dev_ms, conv, int8, gemm) in mgr_split.items():
             print(f"time: manager {label} {mgr_ms[label]:.3f} ms per batch of {DEVICE_BATCH}; "
                   f"profiled {dev_ms:.3f} ms of device time, convolutions {100 * conv:.1f}%, "
@@ -3437,7 +3633,8 @@ def main(argv=None) -> int:
         "batch_normals_max_abs_err": nerr,
         "ablations": ablations, "jax_run_dir_on_card": jax_fixture,
         "scan": scan, "cli_tools": tools, "data_parallel": dp, "expert_parallel": ep,
-        "quality": quality, "drawing_and_hdf5": drawn,
+        "quality": quality, "drawing_and_hdf5": drawn, "max_pool": pool_rows,
+        "max_pool_launches_manager_expert": pools,
     })
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)
@@ -3445,6 +3642,8 @@ def main(argv=None) -> int:
             json.dump(record, f, indent=2, default=str)
 
     R = 3 * DEVICE_BATCH
+    # the largest pool: the 8^3 grid's at B = 256
+    pool_wide = max((t for t in pool_rows if t["B"] == INT8_BATCH), key=lambda t: t["bytes"])
     print(json.dumps({"kernels": [
         {
             "name": "tdmfv_n_est",
@@ -3550,6 +3749,23 @@ def main(argv=None) -> int:
             "library_ms": i8_widest["gemm"]["library_ms"],
             "tops": i8_widest["gemm"]["tops"],
             "by_shape": [t for t in i8_rows if t["kernel"] == "gemm"],
+        },
+        {
+            "name": "max_pool3d",
+            "route": "cuda",
+            "source": "nestinet_tpu_torch/csrc/max_pool.cu",
+            "replaces": "none: XLA's reduce_window in nestinet_tpu/ops/nn.py:347",
+            "launches": dev_sparse["launches"]["max_pool3d"],
+            "launches_int8_fold": dtype_runs["int8+fold"]["launches"]["max_pool3d"],
+            "launches_per_manager_batch": pools["int8+fold"][0],
+            "launches_per_expert_run": pools["int8+fold"][1],
+            "max_abs_err": 0.0,
+            "ms": pool_wide["ms"],
+            "plain_ms": pool_wide["plain_ms"],
+            "bound_ms": pool_wide["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": pool_wide["library_ms"],
+            "by_shape": pool_rows,
         },
     ]}))
     print(card)

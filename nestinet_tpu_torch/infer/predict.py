@@ -75,7 +75,7 @@ from ..models import ExpertsNormEst, SwitchingNormEst, build_model
 from ..models.switching import NOISE_SWITCH_THRESHOLD
 from ..ops.fold import fold_bn_
 from ..ops.gmm import GridGMM
-from ..ops.kernels import int8_cuda, mups_cuda
+from ..ops.kernels import int8_cuda, mups_cuda, pool_cuda
 from ..ops.quant import quantize_
 from ..train import distributed
 from ..train.mesh import make_mesh
@@ -507,7 +507,7 @@ def serving_stats(model, cfg, rows: np.ndarray) -> dict:
 
 def kernel_launches() -> dict:
     """The CUDA kernels' launch counts so far, by kernel."""
-    return {**mups_cuda.KERNEL.launches,
+    return {**mups_cuda.KERNEL.launches, **pool_cuda.POOL.launches,
             **{k: v for lib in int8_cuda.KERNELS for k, v in lib.launches.items()}}
 
 

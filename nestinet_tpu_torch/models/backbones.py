@@ -82,6 +82,19 @@ TINY = [
 ]
 
 
+def pool_inputs(spec, cin: int, resolution: int) -> list:
+    """(channels, resolution, kernel, stride) of the input of each max pool
+    of `spec` run on [cin, resolution^3]: the shapes the pool kernel serves."""
+    pools, c, r = [], cin, resolution
+    for entry in spec:
+        if entry[0] == "incep":
+            c = 2 * entry[1] + 2 * (entry[1] // 2)  # Inception3D.out_channels
+        else:
+            pools.append((c, r, entry[1], entry[2]))
+            r = -(-r // entry[2])
+    return pools
+
+
 def expert_backbone_8g(first_width: int):
     """Expert body for 8^3 grids; `first_width` is 128 // n_scales."""
     return [

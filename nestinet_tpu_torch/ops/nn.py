@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import quant
+from .kernels import pool_cuda
 
 BN_EPS = 1e-3
 
@@ -256,11 +257,23 @@ class DenseBN(nn.Module):
         return F.relu(x) if self.relu else x
 
 
+def max_pool3d_reference(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """The plain version of the max pool kernel (`csrc/max_pool.cu`): aten's
+    pool on a copy padded with -inf, which autograd differentiates."""
+    return F.max_pool3d(_pad_same(x, kernel, stride, value=float("-inf")), kernel, stride)
+
+
 def max_pool3d(x, kernel: int, stride: int):
     """3D max pool, SAME padding with a -inf pad, NCDHW; an ActQ keeps its
-    bound."""
+    bound.  A CUDA tensor whose gradient is not recorded (serving, the eval
+    step) takes the kernel, one launch a pool, in NCDHW order (cuDNN may
+    hand a single sample over in channels-last strides); a CPU tensor, or
+    one whose gradient is recorded (training's forward), the plain version."""
     x, x_amax = unwrap(x)
-    out = F.max_pool3d(_pad_same(x, kernel, stride, value=float("-inf")), kernel, stride)
+    if x.is_cuda and not (torch.is_grad_enabled() and x.requires_grad):
+        out = pool_cuda.max_pool3d_cuda(x.contiguous(), kernel, stride)
+    else:
+        out = max_pool3d_reference(x, kernel, stride)
     return out if x_amax is None else ActQ(out, x_amax)
 
 

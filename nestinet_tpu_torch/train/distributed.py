@@ -165,10 +165,10 @@ def prebuild(device) -> None:
     native.get_library()
     textio.get_library()
     if torch.device(device).type == "cuda":
-        from ..ops.kernels import int8_cuda, mups_cuda
+        from ..ops.kernels import int8_cuda, mups_cuda, pool_cuda
         from ..ops.kernels.build import build_all
 
-        build_all((mups_cuda.KERNEL, *int8_cuda.KERNELS))
+        build_all((mups_cuda.KERNEL, *int8_cuda.KERNELS, pool_cuda.POOL))
 
 
 def _die_with_parent() -> None:
