@@ -91,7 +91,8 @@ and prints no result):
      held (random weights); the manager's time and its device-time split
      (convolutions, int8 kernels, the GEMM) in each dtype, and under int8
      an expert run's; under int8 the device launches of one batch routed on
-     its own (`route_sparse`) and of one conv (`torch.profiler`), and
+     its own through the router (`route_one`) and of one conv
+     (`torch.profiler`), and
      each int8 kernel's own count of one manager call and of one expert
      run, held to the layers (`int8_calls`);
  12. times: both MuPS kernels and their plain version (CUDA events, median
@@ -1231,9 +1232,27 @@ def device_time_split(fn):
     return total / 1e3, conv / total, int8 / total, gemm / total
 
 
+def route_one(model, grid, real):
+    """One padded batch routed on its own through the router
+    (`SparseMoeRouter`, two FIFO slots): the manager on the whole batch,
+    its first `real` rows routed, the runs flushed at `finish`, one run an
+    expert with rows.  Returns (normals, ids, probs) as NumPy arrays."""
+    import numpy as np
+
+    from nestinet_tpu_torch.infer.predict import SparseMoeRouter
+
+    out = []
+    router = SparseMoeRouter(model, grid.shape[0], lambda *o: out.append(o),
+                             device=grid.device, window_slots=2)
+    router.serve(real, grid, model.gate(grid))
+    router.finish()
+    return tuple(np.concatenate(part) for part in zip(*out))
+
+
 def int8_launch_counts(model, grid, real) -> dict:
     """Device launches under int8 (`torch.profiler`): one batch routed on
-    its own (`route_sparse`, one expert run per expert with rows), its int8
+    its own through the router (`route_one`: the manager, one expert run
+    per expert with rows, the router's index uploads and fetches), its int8
     kernel launches, the manager on the batch and one expert run of B rows
     (the router's unit: a served batch makes one manager call and its share
     of the runs), one conv of the manager with a forwarded bound (incep0's
@@ -1242,7 +1261,6 @@ def int8_launch_counts(model, grid, real) -> dict:
     one expert run."""
     import torch
 
-    from nestinet_tpu_torch.infer.predict import route_sparse
     from nestinet_tpu_torch.ops.kernels import int8_cuda
 
     def counted(fn):
@@ -1255,8 +1273,8 @@ def int8_launch_counts(model, grid, real) -> dict:
     block = model.manager.backbone.incep0
     with torch.inference_mode():
         one = block.conv1(x)
-        kernel = int8_launches(counted(lambda: route_sparse(model, grid, real)))
-        return {"routed_batch": device_launches(lambda: route_sparse(model, grid, real)),
+        kernel = int8_launches(counted(lambda: route_one(model, grid, real)))
+        return {"routed_batch": device_launches(lambda: route_one(model, grid, real)),
                 "int8_kernel": kernel,
                 "kernels_manager": counted(lambda: model.manager_probs(grid)),
                 "kernels_expert_run": counted(lambda: model.expert_on_grid(0, grid)),
@@ -1267,13 +1285,12 @@ def int8_launch_counts(model, grid, real) -> dict:
 
 
 def one_batch(model, grid, real):
-    """Routed and dense on one grid: (normals, ids, probs) each way."""
+    """Routed (`route_one`) and dense on one grid: (normals, ids, probs)
+    each way, on the grid's device."""
     import torch
 
-    from nestinet_tpu_torch.infer.predict import route_sparse
-
     with torch.inference_mode():
-        routed = route_sparse(model, grid, real)
+        routed = tuple(torch.from_numpy(a).to(grid.device) for a in route_one(model, grid, real))
         out = model.forward_grid(grid)
         ids_d, probs_d = model.predict_experts(out)
         dense = (model.predict_normals(out)[:real], ids_d[:real], probs_d[:real])

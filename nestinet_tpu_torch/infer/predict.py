@@ -38,6 +38,16 @@ multi-scale models are served dense on the whole padded batch, as JAX does
 (`nestinet_tpu/infer/predict.py:294-330`): they write `.normals` only, and
 `moe_inference` is ignored.
 
+Every call, here and in `infer/device_pipeline.py`, is one job
+(`serve_job`) over a source of padded batches' MuPS grids: `HostBatches`
+here, `device_pipeline.py::DeviceBatches` there.  The job asks the model
+what it serves and writes (`models/base.py::ModelBase`): whether it is
+routed (`n_experts`), its gate's file in each mode (`gate_files`), the
+stats key of its routes (`routes_stat`) and a dense batch's outputs
+(`serve_dense`).  Under a `torch.profiler` session a job records its
+spans and counters (`core/profiling.py`) and returns them in its stats'
+`trace`.
+
 `compute_dtype` and `fold_bn` override the run's config for one call, as
 in JAX; `None` keeps the config's.  The run dir's torch checkpoint is
 served, or the JAX trainer's msgpack checkpoint when it holds no torch one
@@ -71,8 +81,7 @@ from ..core.config import Config
 from ..core.device import resolve_device, set_f32_numerics
 from ..core.rundir import RunDir
 from ..data.loader import get_data_loader
-from ..models import ExpertsNormEst, SwitchingNormEst, build_model
-from ..models.switching import NOISE_SWITCH_THRESHOLD
+from ..models import build_model
 from ..ops.fold import fold_bn_
 from ..ops.gmm import GridGMM
 from ..ops.kernels import int8_cuda, mups_cuda, pool_cuda
@@ -132,23 +141,17 @@ def load_run(run_dir: str, device: torch.device, compute_dtype: str | None = Non
 
 def check_widths(model: torch.nn.Module, state_dict: dict, run_dir: str, model_name: str):
     """Raise a ValueError naming the first tensor whose shape differs
-    between the checkpoint and the model that config.json builds.  The
-    switching model's CNNs take `models/backbones.py::SW_BACKBONE`, which
-    config.json does not record: a run trained with it narrowed is served
-    only with the same narrowing."""
+    between the checkpoint and the model that config.json builds, with the
+    model's `widths_hint`."""
     want = model.state_dict()
     bad = [k for k, v in state_dict.items() if k in want and v.shape != want[k].shape]
     if not bad:
         return
-    hint = (" The switching model's CNNs take models/backbones.py::SW_BACKBONE, which "
-            "config.json does not record: a run trained with it narrowed (as "
-            "nestinet_tpu_torch/testdata/jax_run_switching) is served with the same "
-            "narrowing." if model_name == "ms_sw_n_est" else "")
     k = bad[0]
     raise ValueError(f"{run_dir}: the checkpoint does not fit the {model_name} of its "
                      f"config.json: {len(bad)} tensors differ, first {k}, "
                      f"{tuple(state_dict[k].shape)} in the checkpoint and "
-                     f"{tuple(want[k].shape)} in the model." + hint)
+                     f"{tuple(want[k].shape)} in the model." + model.widths_hint)
 
 
 def pad_batch(batch: dict, batch_size: int) -> dict:
@@ -164,37 +167,6 @@ def pad_batch(batch: dict, batch_size: int) -> dict:
 
 
 MOE_INFERENCE = ("sparse", "dense")
-
-
-def route_sparse(model, grid: torch.Tensor, real: int):
-    """Argmax-only mixture of experts on one [B, r, r, r, C] grid whose first
-    `real` rows are real patches (the rest are padding): the one-batch
-    routing primitive.  Serving no longer goes through it: its runs hold one
-    batch's rows, where JAX's router gathers them across batches
-    (`SparseMoeRouter`), so under int8 its normals are not JAX's.
-
-    The manager runs on the whole padded batch; each real patch then runs
-    through exactly one expert, its argmax (first maximum on ties, as
-    jnp.argmax): per expert with any rows, `index_select` its patches'
-    grids, run the expert, `index_copy` the normals back.  Padded rows
-    never reach an expert.
-
-    Returns (normals [real, 3], expert ids [real], probabilities
-    [real, E]), the ids and probabilities being the manager's.
-    """
-    probs = model.manager_probs(grid)[:, :real]  # [E, real]
-    ids = torch.argmax(probs, dim=0)
-    counts = torch.bincount(ids, minlength=model.n_experts).tolist()
-    order = torch.argsort(ids, stable=True)  # patches grouped by expert
-    normals = torch.empty((real, 3), dtype=torch.float32, device=grid.device)
-    start = 0
-    for e, n in enumerate(counts):
-        if n == 0:
-            continue
-        rows = order[start : start + n]
-        start += n
-        normals.index_copy_(0, rows, model.expert_on_grid(e, grid.index_select(0, rows)))
-    return normals, ids, probs.t()
 
 
 class SparseMoeRouter:
@@ -441,41 +413,6 @@ class SparseMoeRouter:
                   np.concatenate(probs))
 
 
-def is_moe(model) -> bool:
-    return isinstance(model, ExpertsNormEst)
-
-
-def is_switching(model) -> bool:
-    return isinstance(model, SwitchingNormEst)
-
-
-def route_rows(model, cfg) -> np.ndarray:
-    """Zeroed patch counts per route of a serving call: per expert for the
-    mixture of experts, per branch (small-scale, large-scale) for the
-    switching model, none for the other models."""
-    if is_moe(model):
-        return np.zeros(cfg.n_experts, np.int64)
-    return np.zeros(2 if is_switching(model) else 0, np.int64)
-
-
-def serve_grid(model, grid: torch.Tensor, real: int, rows: np.ndarray):
-    """(normals [real, 3], expert ids [real], probabilities [real, E]) of
-    one padded batch's grid served dense; a model other than the mixture of
-    experts gives (normals, None, None), the switching model counting its
-    patches per branch into `rows` (`route_rows`).  Routed serving goes
-    through `SparseMoeRouter`."""
-    if not is_moe(model):
-        outputs = model.forward_grid(grid)
-        if is_switching(model):
-            small = int(profiling.fetch("fetch.outputs",
-                                        (outputs["noise_pred"][:real] < NOISE_SWITCH_THRESHOLD).sum()))
-            rows += (small, real - small)
-        return model.predict_normals(outputs)[:real], None, None
-    outputs = model.forward_grid(grid)
-    ids, probs = model.predict_experts(outputs)
-    return model.predict_normals(outputs)[:real], ids[:real], probs[:real]
-
-
 def _host(t) -> np.ndarray | None:
     if t is None or isinstance(t, np.ndarray):
         return t
@@ -494,14 +431,13 @@ def append_outputs(writer, rows: np.ndarray, normals, experts, probs) -> None:
 
 
 def serving_stats(model, cfg, rows: np.ndarray) -> dict:
-    """The model, dtype and routing fields of a serving call's stats:
-    `expert_rows` (the mixture of experts) or `branch_rows` (the switching
-    model's small- and large-scale patches)."""
+    """The model, dtype and routing fields of a serving call's stats: the
+    patches each route served under the model's `routes_stat`."""
     out = {"model": cfg.model, "compute_dtype": cfg.compute_dtype, "fold_bn": model.fold_bn}
-    if is_moe(model):
-        out["expert_rows"] = rows.tolist()
-    elif rows.size:
-        out["branch_rows"] = dict(zip(("small_scale", "large_scale"), rows.tolist()))
+    if model.routes_stat is not None:
+        rows = rows.tolist()
+        out[model.routes_stat] = (rows if model.route_names is None
+                                  else dict(zip(model.route_names, rows)))
     return out
 
 
@@ -583,50 +519,140 @@ class RankOutputs:
                 "rows": sum(g[1] for g in gathered), "per_rank": per_rank}
 
 
-def is_routed(model, moe_inference: str) -> bool:
-    return (is_moe(model) or is_switching(model)) and moe_inference == "sparse"
-
-
-def make_writer(model, cfg, moe_inference: str, out_dir: str, shape_names,
-                counts) -> ShapeScatterWriter:
-    """The call's writer: `.normals`, with the mixture of experts' `.experts`
-    and `.experts_probs`, or the routed switching model's `.experts` (its
-    branches) and `.noise`."""
-    if is_moe(model):
-        return ShapeScatterWriter(out_dir, shape_names, counts, n_experts=cfg.n_experts)
-    if is_routed(model, moe_inference):
-        return ShapeScatterWriter(out_dir, shape_names, counts, n_experts=model.gate_rows,
-                                  gate_file="noise")
-    return ShapeScatterWriter(out_dir, shape_names, counts)
-
-
-def make_router(model, moe_inference: str, outputs: RankOutputs, batch_size: int, dev,
-                window_slots: int | None, reals: list) -> SparseMoeRouter | None:
-    """The router of a routed call (the mixture of experts or the switching
-    model), else None; `reals`: every global batch's real patch count."""
-    if not is_routed(model, moe_inference):
-        return None
-    return SparseMoeRouter(model, batch_size, outputs.add, device=dev,
-                           window_slots=window_slots, mesh=outputs.mesh, reals=reals)
-
-
 def serve_batch(model, router, outputs: RankOutputs, grid: torch.Tensor, real: int) -> None:
     """One padded batch's grid this rank computed: routed (the gate here,
-    the routes' runs in the router), dense, or the other models' forward."""
+    the routes' runs in the router) or dense (`serve_dense`)."""
     outputs.served(real)
     with profiling.span("batch.model", device=True):
-        out = (serve_grid(model, grid, real, outputs.rows) if router is None
-               else model.gate(grid))
-    if router is None:
-        outputs.add(*out)
-    else:
+        out = model.serve_dense(grid, real) if router is None else model.gate(grid)
+    if router is not None:
         with profiling.span("router.commit"):
             router.serve(real, grid, out)
+        return
+    normals, ids, gate, counts = out
+    if counts is not None:
+        outputs.rows += counts
+    outputs.add(normals, ids, gate)
 
 
-def check_moe_inference(moe_inference: str) -> None:
+class HostBatches:
+    """The batch source of `predict_shapes`: the patches extracted on the
+    host by the loader (`data/loader.py`, the kd-tree), this rank's global
+    batches (batch i on rank i mod N), each zero-padded to the batch size,
+    uploaded, and made into its MuPS grid.  `stats` gives the seconds spent
+    waiting for the loader."""
+
+    def __init__(self, model, cfg, mesh, dev, indir: str, testset: str, batch_size: int,
+                 sparse_patches: bool, *, loader_workers: int):
+        self.model, self.dev, self.batch_size = model, dev, batch_size
+        self.loader, dataset = get_data_loader(
+            testset,
+            indir=indir,
+            batch_size=batch_size,
+            patch_radius=cfg.patch_radius,
+            points_per_patch=cfg.num_point,
+            seed=cfg.seed,
+            patch_center=cfg.patch_center,
+            use_pca=cfg.use_pca,
+            cache_capacity=cfg.cache_capacity,
+            workers=loader_workers,
+            sparse_patches=sparse_patches,
+            shard=(mesh.rank, mesh.size, "batches") if mesh.size > 1 else None,
+        )
+        self.shape_names, self.counts = dataset.shape_names, dataset.shape_patch_count
+        total = sum(self.counts)  # the loader pads the stream's last batch
+        self.reals = [min(batch_size, total - s) for s in range(0, total, batch_size)]
+        self.loader_wait = 0.0
+
+    def __iter__(self):
+        """(grid, real patches) of each of this rank's batches."""
+        batches = iter(self.loader)
+        while True:
+            t_wait = time.perf_counter()
+            batch = next(batches, None)
+            self.loader_wait += time.perf_counter() - t_wait
+            if batch is None:
+                return
+            real = batch["points"].shape[0]
+            batch = pad_batch(batch, self.batch_size)
+            points = profiling.upload("upload.points", batch["points"], self.dev)
+            n_eff = profiling.upload("upload.n_eff", batch["n_eff"].astype(np.int32), self.dev)
+            with profiling.span("batch.mups", device=True):
+                grid = self.model.mups_grid(points, n_eff)
+            yield grid, real
+
+    def stats(self) -> dict:
+        return {"loader_wait_seconds": self.loader_wait}
+
+
+def launch(source, run_dir: str, *, moe_inference: str, batch_size: int, data_parallel: int,
+           device, backend: str | None, **kwargs) -> dict:
+    """`predict_shapes` or `predict_shapes_device`: the arguments checked,
+    then `serve_job` over the batch source `source` on `data_parallel`
+    ranks (`backend` as in `distributed.launch`); rank 0's stats."""
     if moe_inference not in MOE_INFERENCE:
         raise ValueError(f"moe_inference must be one of {MOE_INFERENCE}, got {moe_inference!r}")
+    if data_parallel > 1:
+        assert batch_size % data_parallel == 0, "batch_size must divide by data_parallel"
+    kwargs.update(moe_inference=moe_inference, batch_size=batch_size,
+                  data_parallel=data_parallel, device=device)
+    return distributed.launch(serve_job, data_parallel, (run_dir, source), kwargs,
+                              device=device, backend=backend)
+
+
+def serve_job(run_dir: str, source, *, data_parallel, device, dataset_name, testset, data_path,
+              batch_size, sparse_patches, output_dir, moe_inference, sparse_window_slots,
+              compute_dtype, fold_bn, **source_options) -> dict | None:
+    """Every serving job, on one rank of `data_parallel`: the run dir
+    loaded, the batch source `source` built (`HostBatches`, or
+    `device_pipeline.py::DeviceBatches`, with `source_options`), the writer,
+    the outputs and, where the model is routed, the router; then each batch
+    served, the router and the outputs finished, and the stats.  `seconds`
+    times the loop, from its first batch to the last file written.  Under a
+    `torch.profiler` session the job records its spans and counters
+    (`core/profiling.py`) and returns them in its stats' `trace`."""
+    mesh = make_mesh(data_parallel)
+    dev = resolve_device(device)
+    with profiling.job(dev) as job:
+        set_f32_numerics()
+        rd, cfg, _, model = load_run(run_dir, dev, compute_dtype, fold_bn)
+        indir = data_path if data_path is not None else cfg.data_path
+        out_dir = output_dir if output_dir is not None else rd.results_dir(dataset_name)
+        batches = source(model, cfg, mesh, dev, indir, testset, batch_size, sparse_patches,
+                         **source_options)
+        gate_file = model.gate_files.get(moe_inference)
+        routed = moe_inference == "sparse" and model.n_experts > 0
+        outputs = RankOutputs(mesh, lambda: ShapeScatterWriter(
+            out_dir, batches.shape_names, batches.counts, gate_file, model.gate_rows,
+        ), np.zeros(model.n_experts, np.int64), routed=routed)
+        router = SparseMoeRouter(model, batch_size, outputs.add, device=dev,
+                                 window_slots=sparse_window_slots, mesh=mesh,
+                                 reals=batches.reals) if routed else None
+
+        t0 = time.perf_counter()
+        with profiling.span("loop"):
+            with torch.inference_mode():
+                for grid, real in batches:
+                    serve_batch(model, router, outputs, grid, real)
+                routing = {}
+                if router is not None:
+                    with profiling.span("router.finish"):
+                        routing = router.finish()
+            with profiling.span("outputs.finish"):
+                counts = outputs.finish(router)
+        elapsed = time.perf_counter() - t0
+    if counts is None:
+        return job.attach(None)
+    return job.attach(serving_stats(model, cfg, counts.pop("rows")) | counts | routing | {
+        "seconds": elapsed,
+        "patches_per_sec": counts["n_patches"] / elapsed if elapsed > 0 else float("inf"),
+        "moe_inference": moe_inference,
+        "data_parallel": mesh.size,
+        **batches.stats(),
+        "shapes": outputs.writer.written,
+        "output_dir": out_dir,
+        "device": str(dev),
+    })
 
 
 def predict_shapes(
@@ -655,78 +681,4 @@ def predict_shapes(
     (`sparse_window_slots` as JAX's).  `data_parallel` > 1 serves on that
     many ranks (`backend` as in `distributed.launch`), whole batches each,
     and returns rank 0's stats."""
-    check_moe_inference(moe_inference)
-    if data_parallel > 1:
-        assert batch_size % data_parallel == 0, "batch_size must divide by data_parallel"
-    kwargs = dict(dataset_name=dataset_name, testset=testset, data_path=data_path,
-                  batch_size=batch_size, sparse_patches=sparse_patches,
-                  loader_workers=loader_workers, output_dir=output_dir,
-                  moe_inference=moe_inference, compute_dtype=compute_dtype,
-                  sparse_window_slots=sparse_window_slots, fold_bn=fold_bn,
-                  data_parallel=data_parallel, device=device)
-    return distributed.launch(_predict_shapes, data_parallel, (run_dir,), kwargs,
-                              device=device, backend=backend)
-
-
-def _predict_shapes(run_dir: str, *, dataset_name, testset, data_path, batch_size,
-                    sparse_patches, loader_workers, output_dir, moe_inference, compute_dtype,
-                    sparse_window_slots, fold_bn, data_parallel, device) -> dict | None:
-    """`predict_shapes` in this process: one rank of `data_parallel`."""
-    mesh = make_mesh(data_parallel)
-    dev = resolve_device(device)
-    set_f32_numerics()
-    rd, cfg, gmm, model = load_run(run_dir, dev, compute_dtype, fold_bn)
-    indir = data_path if data_path is not None else cfg.data_path
-    out_dir = output_dir if output_dir is not None else rd.results_dir(dataset_name)
-
-    loader, dataset = get_data_loader(
-        testset,
-        indir=indir,
-        batch_size=batch_size,
-        patch_radius=cfg.patch_radius,
-        points_per_patch=cfg.num_point,
-        seed=cfg.seed,
-        patch_center=cfg.patch_center,
-        use_pca=cfg.use_pca,
-        cache_capacity=cfg.cache_capacity,
-        workers=loader_workers,
-        sparse_patches=sparse_patches,
-        shard=(mesh.rank, mesh.size, "batches") if mesh.size > 1 else None,
-    )
-    outputs = RankOutputs(mesh, lambda: make_writer(
-        model, cfg, moe_inference, out_dir, dataset.shape_names, dataset.shape_patch_count,
-    ), route_rows(model, cfg), routed=is_routed(model, moe_inference))
-    total = sum(dataset.shape_patch_count)  # the loader pads the stream's last batch
-    router = make_router(model, moe_inference, outputs, batch_size, dev, sparse_window_slots,
-                         [min(batch_size, total - s) for s in range(0, total, batch_size)])
-
-    loader_wait = 0.0
-    t0 = time.perf_counter()
-    batches = iter(loader)
-    with torch.inference_mode():
-        while True:
-            t_wait = time.perf_counter()
-            batch = next(batches, None)
-            loader_wait += time.perf_counter() - t_wait
-            if batch is None:
-                break
-            real = batch["points"].shape[0]
-            batch = pad_batch(batch, batch_size)
-            points = torch.from_numpy(batch["points"]).to(dev)
-            n_eff = torch.from_numpy(batch["n_eff"].astype(np.int32)).to(dev)
-            serve_batch(model, router, outputs, model.mups_grid(points, n_eff), real)
-        routing = router.finish() if router is not None else {}
-    counts = outputs.finish(router)
-    elapsed = time.perf_counter() - t0
-    if counts is None:
-        return None
-    return serving_stats(model, cfg, counts.pop("rows")) | counts | routing | {
-        "seconds": elapsed,
-        "loader_wait_seconds": loader_wait,
-        "patches_per_sec": counts["n_patches"] / elapsed if elapsed > 0 else float("inf"),
-        "moe_inference": moe_inference,
-        "data_parallel": mesh.size,
-        "shapes": outputs.writer.written,
-        "output_dir": out_dir,
-        "device": str(dev),
-    }
+    return launch(HostBatches, **locals())  # the arguments above, as given

@@ -6,9 +6,11 @@ Streaming inference sees one flat stream of patches (all points of all
 shapes, in order); the writer scatters per-batch outputs back into
 per-shape buffers and writes `<shape>.normals`, `.experts` and
 `.experts_probs` when a shape completes, byte-identical to np.savetxt
-through the port's `core/textio.py`.  `n_experts` is the number of the
-gate's columns and `gate_file` their file's suffix: the routed switching
-model writes its noise estimate, one column, to `.noise`.
+through the port's `core/textio.py`.  With `gate_file` (the model's
+`gate_files`), `.experts` holds the routes' ids and `<gate_file>` the
+gate's `gate_rows` columns: the mixture of experts' probabilities in
+`.experts_probs`, the routed switching model's noise estimate in `.noise`;
+without it, `.normals` alone is written.
 """
 
 from __future__ import annotations
@@ -22,13 +24,13 @@ from ..core import profiling, textio
 
 class ShapeScatterWriter:
     def __init__(self, output_dir: str, shape_names, shape_patch_counts,
-                 n_experts: int | None = None, gate_file: str = "experts_probs"):
+                 gate_file: str | None = None, gate_rows: int = 0):
         self.output_dir = output_dir
         self.gate_file = gate_file
         os.makedirs(output_dir, exist_ok=True)
         self.shape_names = list(shape_names)
         self.counts = list(shape_patch_counts)
-        self.n_experts = n_experts
+        self.gate_rows = gate_rows
         self.shape_ind = 0
         self.offset = 0
         self.written: list[str] = []
@@ -39,9 +41,9 @@ class ShapeScatterWriter:
             return
         count = self.counts[self.shape_ind]
         self.normals = np.zeros((count, 3), dtype=np.float64)
-        if self.n_experts is not None:
+        if self.gate_file is not None:
             self.experts = np.zeros((count,), dtype=np.int64)
-            self.expert_probs = np.zeros((count, self.n_experts), dtype=np.float64)
+            self.expert_probs = np.zeros((count, self.gate_rows), dtype=np.float64)
 
     def append(self, normals, experts=None, expert_probs=None):
         """Append a batch of per-patch outputs (already trimmed of any
@@ -57,7 +59,7 @@ class ShapeScatterWriter:
                 dst = slice(self.offset, self.offset + take)
                 src = slice(batch_offset, batch_offset + take)
                 self.normals[dst] = normals[src]
-                if self.n_experts is not None:
+                if self.gate_file is not None:
                     self.experts[dst] = np.asarray(experts)[src]
                     self.expert_probs[dst] = np.asarray(expert_probs)[src]
 
@@ -71,7 +73,7 @@ class ShapeScatterWriter:
         with profiling.span("write.flush"):
             name = self.shape_names[self.shape_ind]
             textio.savetxt(os.path.join(self.output_dir, name + ".normals"), self.normals)
-            if self.n_experts is not None:
+            if self.gate_file is not None:
                 textio.savetxt(
                     os.path.join(self.output_dir, name + ".experts"), self.experts,
                     fmt="%i",

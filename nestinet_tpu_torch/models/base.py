@@ -33,6 +33,24 @@ COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 class ModelBase(nn.Module):
+    # What serving asks of a model (`infer/predict.py::serve_job`), with
+    # `serve_dense`:
+    #   n_experts    the routes a routed call sends each patch through (0: the
+    #                model is served dense only)
+    #   gate_rows    the rows of the gate that picks a patch's route
+    #   gate_files   by `moe_inference`, the suffix of the file of the gate's
+    #                columns, written beside `.experts` (the routes' ids); a
+    #                mode not named writes `.normals` alone
+    #   routes_stat  the stats' key of the patches each route served, a list,
+    #   route_names  or a dict by these names
+    #   widths_hint  told when a checkpoint's widths do not fit the model
+    n_experts = 0
+    gate_rows = 0
+    gate_files: dict = {}
+    routes_stat = None
+    route_names = None
+    widths_hint = ""
+
     def __init__(self, cfg, gmm):
         super().__init__()
         self.cfg = cfg
@@ -60,6 +78,14 @@ class ModelBase(nn.Module):
     def is_shard_key(self, key: str) -> bool:
         """True when state dict `key` belongs to this rank's expert shard."""
         return False
+
+    def serve_dense(self, grid: torch.Tensor, real: int) -> tuple:
+        """What a dense call serves of a padded batch's grid whose first
+        `real` rows are patches: (normals [real, 3], the routes' ids [real]
+        and the gate [real, G] where the model writes them, else None, and
+        the host's count of the patches a route where the ids do not give
+        it, else None)."""
+        return self.predict_normals(self.forward_grid(grid))[:real], None, None, None
 
     def mups_grid(self, points: torch.Tensor, n_eff: torch.Tensor) -> torch.Tensor:
         """[B, res, res, res, 20 * n_scales] statistics grid, computed in

@@ -92,6 +92,11 @@ def expert_groups(cfg) -> list[ExpertGroup]:
 
 
 class ExpertsNormEst(ModelBase):
+    # served (`ModelBase`): routed or dense, the manager's probabilities
+    # written to `.experts_probs`, the patches counted per expert
+    gate_files = {"sparse": "experts_probs", "dense": "experts_probs"}
+    routes_stat = "expert_rows"
+
     def __init__(self, cfg, gmm):
         super().__init__(cfg, gmm)
         res = self.resolution
@@ -223,6 +228,13 @@ class ExpertsNormEst(ModelBase):
         idx = torch.argmax(outputs["experts_prob"], dim=0)
         cols = torch.arange(idx.shape[0], device=idx.device)
         return outputs["n_pred"][idx, cols]
+
+    def serve_dense(self, grid: torch.Tensor, real: int) -> tuple:
+        """Every expert on every patch (`ModelBase.serve_dense`): the argmax
+        expert's normals, the expert ids and the probabilities."""
+        outputs = self.forward_grid(grid)
+        ids, probs = self.predict_experts(outputs)
+        return self.predict_normals(outputs)[:real], ids[:real], probs[:real], None
 
     @staticmethod
     def predict_experts(outputs: dict):

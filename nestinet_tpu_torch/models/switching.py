@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import profiling
 from . import backbones
 from .base import ConvNet, ModelBase
 from .losses import switching_loss
@@ -37,10 +38,18 @@ NOISE_HEAD_INIT_STDDEV = 1e-3
 class SwitchingNormEst(ModelBase):
     # {torch net: haiku prefix} (convert.py), in JAX's call order
     HAIKU_NETS = {"noise": "noise_", "large": "large_", "small": "small_"}
-    # the router's routes (`infer/predict.py::SparseMoeRouter`): branch 0 the
-    # small radius, 1 the large; its gate is one row, the noise
+    # served (`ModelBase`): the router's routes are the branches, 0 the small
+    # radius and 1 the large, its gate one row, the noise, written to `.noise`
+    # when routed; dense writes `.normals` alone, as JAX does
     n_experts = 2
     gate_rows = 1
+    gate_files = {"sparse": "noise"}
+    routes_stat = "branch_rows"
+    route_names = ("small_scale", "large_scale")
+    widths_hint = (" The switching model's CNNs take models/backbones.py::SW_BACKBONE, which "
+                   "config.json does not record: a run trained with it narrowed (as "
+                   "nestinet_tpu_torch/testdata/jax_run_switching) is served with the same "
+                   "narrowing.")
 
     def __init__(self, cfg, gmm):
         super().__init__(cfg, gmm)
@@ -62,6 +71,14 @@ class SwitchingNormEst(ModelBase):
         n_small = self.expert_on_grid(0, grid, training, bn_momentum)
         n_est = torch.where((noise < NOISE_SWITCH_THRESHOLD)[:, None], n_small, n_large)
         return {"n_pred": n_est, "noise_pred": noise}
+
+    def serve_dense(self, grid: torch.Tensor, real: int) -> tuple:
+        """All three CNNs on every patch (`ModelBase.serve_dense`): the
+        normals, and the patches a branch counted from the noise."""
+        outputs = self.forward_grid(grid)
+        small = int(profiling.fetch("fetch.outputs",
+                                    (outputs["noise_pred"][:real] < NOISE_SWITCH_THRESHOLD).sum()))
+        return self.predict_normals(outputs)[:real], None, None, np.array((small, real - small))
 
     def gate(self, grid: torch.Tensor, training: bool = False, bn_momentum=None) -> torch.Tensor:
         """The noise CNN on the large radius's channels of a [B, r, r, r, 40]

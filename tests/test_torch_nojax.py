@@ -134,16 +134,25 @@ SCRIPT = textwrap.dedent(
     assert out["experts_prob"].shape == (7, 4)
 
     from nestinet_tpu_torch.infer.device_pipeline import extract_batch
-    from nestinet_tpu_torch.infer.predict import route_sparse
+    from nestinet_tpu_torch.infer.predict import SparseMoeRouter
     from nestinet_tpu_torch.ops.ball_query import build_grid
+    import numpy as np
+
+    def routed(model, grid, real):  # one batch through the router
+        out = []
+        router = SparseMoeRouter(model, grid.shape[0], lambda *o: out.append(o),
+                                 device=grid.device, window_slots=2)
+        router.serve(real, grid, model.gate(grid))
+        router.finish()
+        return [np.concatenate(part) for part in zip(*out)]
 
     cloud = torch.rand((200, 3), generator=g)
     radii = (0.2, 0.3, 0.4)
     grids = [build_grid(cloud, r) for r in radii]
     pts, ne = extract_batch(grids, cloud[:4], radii, 7, num_point=8, caps=(64,) * 3)
     with torch.inference_mode():
-        normals, ids, probs = route_sparse(model, model.mups_grid(pts, ne), 3)
-    assert normals.shape == (3, 3) and torch.isfinite(normals).all()
+        normals, ids, probs = routed(model, model.mups_grid(pts, ne), 3)
+    assert normals.shape == (3, 3) and np.isfinite(normals).all()
     assert ids.shape == (3,) and probs.shape == (3, 7)
 
     import dataclasses
@@ -157,11 +166,10 @@ SCRIPT = textwrap.dedent(
     with torch.inference_mode():
         grid = q.mups_grid(pts, ne)
         assert grid.dtype == torch.bfloat16
-        normals, ids, probs = route_sparse(q, grid, 3)
-    assert normals.dtype == probs.dtype == torch.float32
-    assert torch.isfinite(normals).all() and torch.isfinite(probs).all()
+        normals, ids, probs = routed(q, grid, 3)
+    assert normals.dtype == probs.dtype == np.float32
+    assert np.isfinite(normals).all() and np.isfinite(probs).all()
     import os, tempfile
-    import numpy as np
     from nestinet_tpu_torch.core import textio
     with tempfile.TemporaryDirectory() as tmp:
         build_protocol_benchmark(tmp, n_points=60, n_pidx=10, seed=3)

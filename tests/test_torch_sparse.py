@@ -1,9 +1,11 @@
 """The port's routed (argmax-only) MoE serving, on the CPU.
 
-`route_sparse` computes the grid once, runs the manager on the padded
-batch and each real patch through its argmax expert only.  Held to the
-port's own dense path (ids identical, normals atol 1e-5: the same
-arithmetic on a sub-batch) and to the JAX package's routed serving,
+The router (`SparseMoeRouter`) computes the grid once, runs the manager on
+the padded batch and each real patch through its argmax expert only.  One
+batch routed on its own (`route_one_batch`) is held to the port's own dense
+path (ids identical, normals atol 1e-5: the same arithmetic on a
+sub-batch); whole jobs are held to the port's dense job and to the JAX
+package's routed serving,
 `predict_shapes(moe_inference="sparse", compute_dtype="float32")`, on
 every point and on the `.pidx` subsets (`.experts` identical, `.normals`
 and `.experts_probs` atol 1e-4: float32 with other summation orders).
@@ -16,7 +18,7 @@ import pytest
 import torch
 
 from nestinet_tpu.infer.predict import predict_shapes as jax_predict_shapes
-from nestinet_tpu_torch.infer.predict import load_run, predict_shapes, route_sparse
+from nestinet_tpu_torch.infer.predict import SparseMoeRouter, load_run, predict_shapes
 
 from .test_torch_slice import BATCH, N_POINTS, build_data, build_run
 from tests._torch_disk import remove_module_tmp, remove_tmp_path  # noqa: F401
@@ -109,6 +111,19 @@ def model_and_grid(run):
     return model, grid, B - 4
 
 
+def route_one_batch(model, grid, real):
+    """One padded batch's grid routed on its own through the router: its
+    gate on the whole batch, its first `real` rows routed, the runs flushed
+    at `finish`.  Returns (normals [real, 3], route ids [real], gate
+    [real, G]) as NumPy arrays, and the router."""
+    out = []
+    router = SparseMoeRouter(model, grid.shape[0], lambda *o: out.append(o),
+                             device=grid.device, window_slots=2)
+    router.serve(real, grid, model.gate(grid))
+    router.finish()
+    return (*(np.concatenate(part) for part in zip(*out)), router)
+
+
 def _dense(model, grid, real):
     out = model.forward_grid(grid)
     ids, probs = model.predict_experts(out)
@@ -117,14 +132,16 @@ def _dense(model, grid, real):
 
 def _check_against_dense(model, grid, real):
     with torch.inference_mode():
-        normals, ids, probs = route_sparse(model, grid, real)
+        normals, ids, probs, router = route_one_batch(model, grid, real)
         d_normals, d_ids, d_probs = _dense(model, grid, real)
     assert normals.shape == (real, 3) and ids.shape == (real,)
     assert probs.shape == (real, model.n_experts)
-    torch.testing.assert_close(ids, d_ids, rtol=0, atol=0)
-    torch.testing.assert_close(probs, d_probs, rtol=0, atol=0)
-    torch.testing.assert_close(normals, d_normals, rtol=0, atol=1e-5)
-    return np.bincount(ids.numpy(), minlength=model.n_experts)
+    np.testing.assert_array_equal(ids, d_ids.numpy())
+    np.testing.assert_array_equal(probs, d_probs.numpy())
+    np.testing.assert_allclose(normals, d_normals.numpy(), rtol=0, atol=1e-5)
+    counts = np.bincount(ids, minlength=model.n_experts)
+    assert router.expert_runs == np.count_nonzero(counts)  # one run an expert with rows
+    return counts
 
 
 def test_route_sparse_with_idle_experts(model_and_grid):
@@ -149,19 +166,29 @@ def test_route_sparse_with_one_expert_taking_every_row(model_and_grid):
 
 
 def test_route_sparse_never_runs_padding_rows(model_and_grid):
-    """The experts see only the real rows: an expert that records its
-    inputs' batch sizes sees `real` rows in all."""
+    """The experts see only the real rows: every row of every run is a real
+    patch's (a run is padded with the FIFO's first row, a real patch), each
+    real patch reaches an expert, and no padding row of the batch does."""
     model, grid, real = model_and_grid
     seen = []
-    hooks = [e.register_forward_hook(lambda m, inp, out: seen.append(inp[0].shape[0]))
-             for e in model.experts]
+
+    def recording(e, rows):
+        seen.append(rows)
+        return type(model).expert_on_grid(model, e, rows)
+
+    model.expert_on_grid = recording
     try:
         with torch.inference_mode():
-            route_sparse(model, grid, real)
+            _, ids, _, _ = route_one_batch(model, grid, real)
     finally:
-        for h in hooks:
-            h.remove()
-    assert sum(seen) == real and len(seen) <= model.n_experts
+        del model.expert_on_grid
+    flat = torch.cat(seen).reshape(sum(map(len, seen)), -1)
+    real_rows, pad_rows = grid[:real].reshape(real, -1), grid[real:].reshape(len(grid) - real, -1)
+    assert not (real_rows[:, None] == pad_rows[None]).all(-1).any()  # the padding is distinct
+    match = (flat[:, None] == real_rows[None]).all(-1)  # [rows run, real patches]
+    assert match.any(1).all() and match.any(0).all()
+    assert not (flat[:, None] == pad_rows[None]).all(-1).any()
+    assert len(seen) == len(np.unique(ids)) <= model.n_experts
 
 
 def test_unknown_moe_inference_raises(run):
