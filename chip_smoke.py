@@ -7,10 +7,11 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
   1. device: require CUDA, print the card's name and power limit, turn
      TF32 off (the JAX reference computes in float32);
-  2. build: compile the four CUDA libraries (`csrc/mups_kernel.cu`, the
+  2. build: compile the five CUDA libraries (`csrc/mups_kernel.cu`, the
      two MuPS kernels; `csrc/int8_conv.cu`, the int8 convs, k > 1;
      `csrc/int8_gemm.cu`, the int8 GEMM of the k = 1 layers;
-     `csrc/max_pool.cu`, the backbones' max pool) with nvcc into the
+     `csrc/max_pool.cu`, the backbones' max pool; `csrc/avg_pool.cu`, the
+     Inception blocks' average pool) with nvcc into the
      gitignored build directory, one nvcc per library, started together;
      print their ptxas lines;
   3. MuPS kernel (one row per ticket of a persistent grid) against its
@@ -56,6 +57,19 @@ and prints no result):
      below must launch the kernel, phase 11 counts one launch a pool in one
      manager call and one expert run (3 and 3) in each dtype, and phase 14a
      two a CNN of each ablation model;
+ 5c. the average pool kernel against its plain version
+     (`avg_pool3d_reference`: aten's +0 pad, the separable adds in D, H, W
+     order, TensorFlow's divisor, the divide and aten's ReLU) at every
+     Inception block's pool of the nets of 5b on 60 and 20 channels, at
+     B = 256 and 1024, and at six shapes of the cell-by-cell kernel at
+     B = 37, in bfloat16 and float32, ReLU off and on, with NaN (two
+     payloads), +-inf, signed zeros, overflowing and subnormal volumes
+     planted: bits identical, one launch a call; at B = 256 and 1024 in
+     bfloat16 each served shape timed on the device beside its byte bound
+     and the plain version; it prints aten's ReLU of -0 on the card (+0,
+     which the kernel's ReLU gives too); every serving path below must
+     launch the kernel, and phase 11 counts one launch an Inception block
+     (6 a manager call, 4 an expert run) in each dtype;
   6. device extraction: one batch of 256 queries per radius of the
      flagship config on one synthetic shape, extracted on the card and on
      the CPU from the same inputs: grids, selected rows, hit masks and
@@ -260,7 +274,8 @@ where it took four, and 16b's `cli.test --data_parallel 2` serves two
 shapes in float32 and one in int8+fold where it served six in each.
 Phase 18 adds about 80 s (81 s on an H100; 52 s before 18d, the quality
 drivers at full width) and cuts nothing.  Phase 19 is held under 60 s and cuts
-nothing.
+nothing.  Phase 5c adds 20-30 s (20.3 s on an H100) and cuts nothing: the
+average pool kernel makes every serving phase's pools faster.
 
 Each serving path and the kernels' entry point run with the launch counts
 set to 0 just before and read just after; a kernel of the path that was
@@ -302,6 +317,9 @@ POOL_BATCH_WIDE = 1024  # phase 5b also holds and times the max pool at B = 1024
 POOL_TIMED_CALLS = 20  # phase 5b: the calls a timing averages, at least
 # phase 5b: (D, H, W), kernel, stride of rows no fixed instance takes, held at B = 37
 POOL_ELEMENT_WISE = (((5, 5, 5), 2, 2), ((4, 5, 7), 3, 2), ((6, 6, 6), 3, 1))
+# phase 5c: (D, H, W), kernel, stride of average pools no fixed instance takes, at B = 37
+AVG_POOL_ELEMENT_WISE = (((5, 5, 5), 3, 1), ((4, 5, 7), 3, 1), ((8, 8, 8), 5, 1),
+                         ((3, 3, 3), 4, 1), ((6, 6, 6), 3, 2), ((2, 7, 9), 4, 3))
 L2_BYTES = 50 * 2**20  # the H100's L2 cache
 KERNEL_ATOL = 1e-5
 GRAD_ATOL = 1e-4
@@ -845,15 +863,30 @@ def check_int8_kernel(gen, dev, card):
 
 
 def served_pools() -> list:
-    """(C, R, k, s) of the input of every max pool of the served backbones
-    (the manager, both expert widths, SW = MS = SS), of CONV_NET_3G and of
-    TINY on both grids."""
+    """(C, R, k, s) of the input of every max pool of `served_nets`."""
     from nestinet_tpu_torch.models import backbones as bb
 
-    nets = [(bb.CONV_NET_8G, 8), (bb.expert_backbone_8g(128 // 3), 8),
+    return sorted({p for spec, r in served_nets() for p in bb.pool_inputs(spec, 60, r)})
+
+
+def served_nets() -> list:
+    """(spec, resolution) of the served backbones (the manager, both expert
+    widths, SW = MS = SS), of CONV_NET_3G and of TINY on both grids."""
+    from nestinet_tpu_torch.models import backbones as bb
+
+    return [(bb.CONV_NET_8G, 8), (bb.expert_backbone_8g(128 // 3), 8),
             (bb.expert_backbone_8g(128), 8), (bb.SW_BACKBONE, 8), (bb.MS_BACKBONE_8G, 8),
             (bb.SS_BACKBONE, 8), (bb.CONV_NET_3G, 3), (bb.TINY, 8), (bb.TINY, 3)]
-    return sorted({p for spec, r in nets for p in bb.pool_inputs(spec, 60, r)})
+
+
+def served_avg_pools() -> list:
+    """(C, R, k) of the input of every Inception block's average pool of the
+    nets of `served_nets`, at inference (stride 1), on the 60 channels of
+    three radii and the 20 of one (a one-scale expert, the switching CNNs)."""
+    from nestinet_tpu_torch.models import backbones as bb
+
+    return sorted({p for spec, r in served_nets() for cin in (20, 60)
+                   for p in bb.avg_pool_inputs(spec, cin, r)})
 
 
 def planted_on_card(gen, dev, shape, dtype):
@@ -976,16 +1009,121 @@ def check_max_pool(dev, card):
     return rows
 
 
-def pool_launches(fn) -> int:
-    """The max pool kernel's launches in one call of `fn` outside autograd."""
+def planted_avg_on_card(gen, dev, shape, dtype):
+    """Normal values in `dtype` on the card, about 0.2% each of two NaNs (the
+    canonical quiet NaN and all bits set), +inf and -inf, 4% each +0 and -0;
+    whole (sample, channel) volumes of -0, of zeros of both signs, of values
+    near the largest finite float32 (their sums overflow) and of subnormals."""
+    import torch
+
+    x = torch.randn(shape, generator=gen, device=dev) * 3
+    pick = torch.rand(shape, generator=gen, device=dev)
+    neg_zero = torch.full((), -0.0, device=dev)
+    x = torch.where((pick >= 0.004) & (pick < 0.006), float("inf"), x)
+    x = torch.where((pick >= 0.006) & (pick < 0.008), float("-inf"), x)
+    x = torch.where((pick >= 0.008) & (pick < 0.048), 0.0, x)
+    x = torch.where((pick >= 0.048) & (pick < 0.088), neg_zero, x)
+    which = torch.rand(shape[:2] + (1, 1, 1), generator=gen, device=dev)
+    signs = torch.where(torch.rand(shape, generator=gen, device=dev) < 0.5, 0.0, neg_zero)
+    x = torch.where(which < 0.04, neg_zero, torch.where(which < 0.07, signs, x))
+    x = torch.where((which >= 0.07) & (which < 0.09), x * 1e38, x)
+    x = torch.where((which >= 0.09) & (which < 0.11), x * 1e-39, x)
+    x = x.to(dtype)
+    ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    bits = x.view(ints)
+    bits[pick < 0.002] = torch.tensor(float("nan"), dtype=dtype).view(ints).item()
+    bits[(pick >= 0.002) & (pick < 0.004)] = -1
+    return x
+
+
+def check_avg_pool(dev, card):
+    """Phase 5c: the average pool kernel against its plain version on the
+    card (`ops/nn.py::avg_pool3d_reference`: aten's pad, adds, divisor and
+    divide, then aten's ReLU) at every served average pool shape
+    (`served_avg_pools`) at B = 256 and 1024, and at the shapes of
+    `AVG_POOL_ELEMENT_WISE` at B = 37, in bfloat16 and float32, with and
+    without the ReLU, NaN (two payloads), +-inf, signed zeros, overflowing
+    and subnormal volumes planted: bits identical, one launch a call.  At
+    B = 256 and 1024 in bfloat16 each served shape is timed on the device
+    (`device_ms`, over copies of the input that together exceed the L2 cache
+    twice) beside its byte bound and the plain version, with the launches a
+    call of each.  Returns the timing rows and aten's ReLU of -0 on the card."""
+    import torch
+
+    from nestinet_tpu_torch.ops import nn as tnn
+    from nestinet_tpu_torch.ops.kernels import pool_cuda
+
+    t5 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    pools = served_avg_pools()
+    cases = [(B, C, (R,) * 3, k, 1) for (C, R, k), B in itertools.product(
+        pools, (INT8_BATCH, POOL_BATCH_WIDE))]
+    cases += [(INT8_SUB_BATCH, 24, size, k, s) for size, k, s in AVG_POOL_ELEMENT_WISE]
+    rows, n_cases = [], 0
+    for (B, C, size, k, s), dtype in itertools.product(cases, (torch.bfloat16, torch.float32)):
+        x = planted_avg_on_card(gen, dev, (B, C, *size), dtype)
+        ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        for relu in (False, True):
+            pool_cuda.AVG_POOL.reset_launches()
+            got = pool_cuda.avg_pool3d_cuda(x, k, s, relu)
+            launches = pool_cuda.AVG_POOL.launches["avg_pool3d"]
+            want = tnn.avg_pool3d_reference(x, k, s, relu)
+            torch.cuda.synchronize()
+            n_cases += 1
+            name = f"average pool {(B, C, size, k, s)} {dtype} relu={relu}"
+            if launches != 1:
+                fail(f"{name}: {launches} launches")
+            if got.shape != want.shape:
+                fail(f"{name}: shape {tuple(got.shape)}, the plain version's {tuple(want.shape)}")
+            n_diff = int((got.view(ints) != want.view(ints)).sum())
+            if n_diff:
+                n_nan = int((got.isnan() & want.isnan() & (got.view(ints) != want.view(ints)))
+                            .sum())
+                fail(f"{name}: {n_diff} outputs differ from the plain version's bits "
+                     f"({n_nan} of them NaN in both)")
+        if (dtype != torch.bfloat16 or B not in (INT8_BATCH, POOL_BATCH_WIDE)
+                or not pool_cuda.fixed_volume(size, k, s)):
+            continue
+        nbytes = 2 * x.numel() * x.element_size()
+        copies = [x] + [x.clone() for _ in range(-(-2 * L2_BYTES // nbytes) - 1)]
+        rounds = -(-POOL_TIMED_CALLS // len(copies))
+        ms, n = device_ms([lambda c=c: pool_cuda.avg_pool3d_cuda(c, k, s, True)
+                           for c in copies] * rounds)
+        plain_ms, plain_n = device_ms([lambda c=c: tnn.avg_pool3d_reference(c, k, s, True)
+                                       for c in copies] * rounds)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        R = size[0]
+        rows.append({"B": B, "C": C, "R": R, "k": k, "ms": ms, "launches": n,
+                     "bound_ms": bound_ms, "bound_pct": 100 * bound_ms / ms, "bytes": nbytes,
+                     "plain_ms": plain_ms, "plain_launches": plain_n})
+        print(f"time: average pool [B={B}, C={C}, {R}^3, k={k}, bf16, relu]: {ms:.4f} ms of "
+              f"device time in {n:g} launch, {100 * bound_ms / ms:.1f}% of its byte bound "
+              f"{bound_ms:.4f} ms ({nbytes} bytes); plain {plain_ms:.4f} ms in {plain_n:g} "
+              f"launches [{card}]", flush=True)
+        del copies
+    neg_zero = torch.full((2,), -0.0, device=dev)
+    relu_neg_zero = {str(dt).removeprefix("torch."): "-0" if torch.relu(neg_zero.to(dt)).float()
+                     .signbit().all() else "+0" for dt in (torch.bfloat16, torch.float32)}
+    print(f"phase 5c: the average pool identical to its plain version at {n_cases} cases "
+          f"({len(pools)} served shapes at 2 batches and {len(AVG_POOL_ELEMENT_WISE)} of the "
+          f"element-wise kernel, 2 dtypes, ReLU off and on), one launch each; aten's ReLU of "
+          f"-0 on the card {relu_neg_zero}; the phase took {time.perf_counter() - t5:.1f} s",
+          flush=True)
+    return rows, relu_neg_zero
+
+
+def pool_launches(fn, counter: str = "max_pool3d") -> int:
+    """A pool kernel's launches (`counter`: "max_pool3d" or "avg_pool3d") in
+    one call of `fn` outside autograd."""
     import torch
 
     from nestinet_tpu_torch.ops.kernels import pool_cuda
 
-    pool_cuda.POOL.reset_launches()
+    lib = next(lib for lib in pool_cuda.KERNELS if counter in lib.launches)
+    lib.reset_launches()
     with torch.inference_mode():
         fn()
-    return pool_cuda.POOL.launches["max_pool3d"]
+    return lib.launches[counter]
 
 
 def device_launches(fn) -> int:
@@ -1192,9 +1330,10 @@ def serve(name, fn, kernels, card, int8: bool = False, int8_per=None):
              f"{stats['n_batches']}")
     if int8 != (int8_launches(launches) > 0):
         fail(f"{name}: {int8_launches(launches)} int8 kernel launches")
-    if launches.get("max_pool3d", 0) < stats["n_batches"]:
-        fail(f"{name}: {launches.get('max_pool3d', 0)} max pool launches for "
-             f"{stats['n_batches']} batches")
+    for pool in ("max_pool3d", "avg_pool3d"):
+        if launches.get(pool, 0) < stats["n_batches"]:
+            fail(f"{name}: {launches.get(pool, 0)} {pool} launches for {stats['n_batches']} "
+                 f"batches")
     if int8 and int8_per is not None:
         check_int8_launches(name, launches, stats["n_batches"], stats.get("expert_runs", 0),
                             int8_per)
@@ -3293,7 +3432,7 @@ def main(argv=None) -> int:
     from nestinet_tpu_torch.scripts import mups_kernel_exp
 
     kernel = mups_cuda.KERNEL
-    kernels = (kernel, *int8_cuda.KERNELS, pool_cuda.POOL)
+    kernels = (kernel, *int8_cuda.KERNELS, *pool_cuda.KERNELS)
     t0 = time.perf_counter()
     paths = build_all(kernels)
     secs = time.perf_counter() - t0
@@ -3342,6 +3481,9 @@ def main(argv=None) -> int:
 
     # ---- 5b. the max pool kernel against aten's at every served pool shape ----
     pool_rows = check_max_pool(dev, card)
+
+    # ---- 5c. the average pool kernel against its plain version at every served pool ----
+    avg_rows, relu_neg_zero = check_avg_pool(dev, card)
 
     from nestinet_tpu_torch.core import checkpoint
     from nestinet_tpu_torch.core.config import Config
@@ -3484,6 +3626,8 @@ def main(argv=None) -> int:
                                             iters=10)}
         pools = {"f32": (pool_launches(lambda: model.manager_probs(grid)),
                          pool_launches(lambda: model.expert_on_grid(0, grid)))}
+        avg_pools = {"f32": (pool_launches(lambda: model.manager_probs(grid), "avg_pool3d"),
+                             pool_launches(lambda: model.expert_on_grid(0, grid), "avg_pool3d"))}
         gaps, launch_counts, expert_split = {}, {}, {}
         for label, dtype, fold in DTYPE_PATHS:
             _, _, _, m = load_run(rd.path, dev, dtype, fold)
@@ -3506,6 +3650,8 @@ def main(argv=None) -> int:
                 fail(f"{label}: normals differ between routed and dense serving: {diff}")
             pools[label] = (pool_launches(lambda: m.manager_probs(g)),
                             pool_launches(lambda: m.expert_on_grid(0, g)))
+            avg_pools[label] = (pool_launches(lambda: m.manager_probs(g), "avg_pool3d"),
+                                pool_launches(lambda: m.expert_on_grid(0, g), "avg_pool3d"))
             with torch.inference_mode():
                 mgr_split[label] = device_time_split(lambda: m.manager_probs(g))
                 mgr_ms[label] = cuda_median_ms(lambda: m.manager_probs(g), warmup=2, iters=10)
@@ -3521,6 +3667,13 @@ def main(argv=None) -> int:
               f"{pools} (one a pool: {want_pools})", flush=True)
         if any(p != want_pools for p in pools.values()):
             fail(f"the max pool kernel's launches {pools}, where the pools make {want_pools}")
+        want_avg = (len(backbones.avg_pool_inputs(backbones.CONV_NET_8G, 60, 8)),
+                    len(backbones.avg_pool_inputs(backbones.expert_backbone_8g(128 // 3), 20, 8)))
+        print(f"launches: the average pool kernel in one manager call and one expert run "
+              f"{avg_pools} (one an Inception block: {want_avg})", flush=True)
+        if any(p != want_avg for p in avg_pools.values()):
+            fail(f"the average pool kernel's launches {avg_pools}, where the Inception blocks "
+                 f"make {want_avg}")
         for label, (dev_ms, conv, int8, gemm) in mgr_split.items():
             print(f"time: manager {label} {mgr_ms[label]:.3f} ms per batch of {DEVICE_BATCH}; "
                   f"profiled {dev_ms:.3f} ms of device time, convolutions {100 * conv:.1f}%, "
@@ -3651,7 +3804,8 @@ def main(argv=None) -> int:
         "ablations": ablations, "jax_run_dir_on_card": jax_fixture,
         "scan": scan, "cli_tools": tools, "data_parallel": dp, "expert_parallel": ep,
         "quality": quality, "drawing_and_hdf5": drawn, "max_pool": pool_rows,
-        "max_pool_launches_manager_expert": pools,
+        "max_pool_launches_manager_expert": pools, "avg_pool": avg_rows,
+        "avg_pool_launches_manager_expert": avg_pools, "relu_of_neg_zero": relu_neg_zero,
     })
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)
@@ -3661,6 +3815,7 @@ def main(argv=None) -> int:
     R = 3 * DEVICE_BATCH
     # the largest pool: the 8^3 grid's at B = 256
     pool_wide = max((t for t in pool_rows if t["B"] == INT8_BATCH), key=lambda t: t["bytes"])
+    avg_wide = max((t for t in avg_rows if t["B"] == INT8_BATCH), key=lambda t: t["bytes"])
     print(json.dumps({"kernels": [
         {
             "name": "tdmfv_n_est",
@@ -3783,6 +3938,23 @@ def main(argv=None) -> int:
             "bound_by": "bytes",
             "library_ms": pool_wide["library_ms"],
             "by_shape": pool_rows,
+        },
+        {
+            "name": "avg_pool3d",
+            "route": "cuda",
+            "source": "nestinet_tpu_torch/csrc/avg_pool.cu",
+            "replaces": "none: XLA's reduce_window in nestinet_tpu/ops/nn.py:394-414",
+            "launches": dev_sparse["launches"]["avg_pool3d"],
+            "launches_int8_fold": dtype_runs["int8+fold"]["launches"]["avg_pool3d"],
+            "launches_per_manager_batch": avg_pools["int8+fold"][0],
+            "launches_per_expert_run": avg_pools["int8+fold"][1],
+            "max_abs_err": 0.0,
+            "ms": avg_wide["ms"],
+            "plain_ms": avg_wide["plain_ms"],
+            "bound_ms": avg_wide["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "by_shape": avg_rows,
         },
     ]}))
     print(card)

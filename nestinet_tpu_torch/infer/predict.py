@@ -443,8 +443,9 @@ def serving_stats(model, cfg, rows: np.ndarray) -> dict:
 
 def kernel_launches() -> dict:
     """The CUDA kernels' launch counts so far, by kernel."""
-    return {**mups_cuda.KERNEL.launches, **pool_cuda.POOL.launches,
-            **{k: v for lib in int8_cuda.KERNELS for k, v in lib.launches.items()}}
+    return {**mups_cuda.KERNEL.launches,
+            **{k: v for lib in (*pool_cuda.KERNELS, *int8_cuda.KERNELS)
+               for k, v in lib.launches.items()}}
 
 
 class RankOutputs:

@@ -95,6 +95,21 @@ def pool_inputs(spec, cin: int, resolution: int) -> list:
     return pools
 
 
+def avg_pool_inputs(spec, cin: int, resolution: int) -> list:
+    """(channels, resolution, kernel) of the input of each Inception block's
+    stride-1 average pool of `spec` run on [cin, resolution^3] at inference:
+    the block's input, or conv4's n channels where cin > n
+    (`ops/nn.py::Inception3D`)."""
+    pools, c, r = [], cin, resolution
+    for entry in spec:
+        if entry[0] == "incep":
+            pools.append((min(c, entry[1]), r, entry[2][0]))
+            c = 2 * entry[1] + 2 * (entry[1] // 2)  # Inception3D.out_channels
+        else:
+            r = -(-r // entry[2])
+    return pools
+
+
 def expert_backbone_8g(first_width: int):
     """Expert body for 8^3 grids; `first_width` is 128 // n_scales."""
     return [

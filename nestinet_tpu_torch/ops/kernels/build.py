@@ -5,7 +5,8 @@ Libraries: `csrc/mups_kernel.cu` (the two MuPS kernels, `mups_cuda.py`),
 `csrc/int8_gemm.cu` (the int8 GEMM of the k = 1 layers), both bound by
 `int8_cuda.py` and both finding libcuda's `cuTensorMapEncodeTiled` with
 dlopen; the int8 sources share `csrc/hopper.cuh`; `csrc/max_pool.cu` (the
-backbones' max pool, `pool_cuda.py`).  Each `csrc/<name>.cu`
+backbones' max pool) and `csrc/avg_pool.cu` (the Inception blocks' average
+pool), both bound by `pool_cuda.py`.  Each `csrc/<name>.cu`
 exposes a plain C interface and is compiled on its own into a shared
 library for sm_90a (no PyTorch headers, so a build takes seconds):
 

@@ -277,40 +277,65 @@ def max_pool3d(x, kernel: int, stride: int):
     return out if x_amax is None else ActQ(out, x_amax)
 
 
-def avg_pool3d(x, kernel: int, stride: int, *, separable: bool = True):
-    """3D average pool, SAME padding; the divisor counts only the valid
-    (unpadded) cells of each window, as TensorFlow does, and is the outer
-    product of the per-axis valid counts.  An ActQ keeps its bound.
-
-    Separable (serving, JAX `ops/nn.py:394-414`): one window sum per spatial
-    axis, each summed one cell at a time in x.dtype.  `separable=False`
-    (training, JAX `:383-393`): one k^3 window sum, which keeps no
-    per-axis intermediates for the backward pass, taken in float32."""
-    x, x_amax = unwrap(x)
-    sums = x
+def _avg_pool_counts(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """TensorFlow's divisor of the SAME average pool: the outer product of the
+    per-axis counts of each window's cells inside the grid, taken in x.dtype
+    ([1, 1, OD, OH, OW])."""
     counts = torch.ones((), dtype=x.dtype, device=x.device)
     for axis in (2, 3, 4):
         size = x.shape[axis]
-        lo, hi = _same_pads(size, kernel, stride)
-        if separable:
-            pads = [0, 0] * 3
-            pads[2 * (4 - axis)] = lo  # F.pad lists the last axis first
-            pads[2 * (4 - axis) + 1] = hi
-            windows = F.pad(sums, pads).unfold(axis, kernel, stride)
-            sums = windows[..., 0]
-            for j in range(1, kernel):
-                sums = sums + windows[..., j]
         ones = torch.ones((size,), dtype=x.dtype, device=x.device)
-        c = F.pad(ones, (lo, hi)).unfold(0, kernel, stride).sum(-1)
+        c = F.pad(ones, _same_pads(size, kernel, stride)).unfold(0, kernel, stride).sum(-1)
         shape = [1, 1, 1, 1, 1]
         shape[axis] = c.shape[0]
         counts = counts * c.reshape(shape)
+    return counts
+
+
+def avg_pool3d_reference(x: torch.Tensor, kernel: int, stride: int,
+                         relu: bool = False) -> torch.Tensor:
+    """The plain version of the average pool kernel (`csrc/avg_pool.cu`), JAX's
+    separable pool (`ops/nn.py:394-414`): one window sum per spatial axis,
+    D, H, W, each summed one cell at a time in x.dtype from the window's
+    first cell over a copy padded with +0, divided by `_avg_pool_counts`;
+    then the pool branch's ReLU where `relu`."""
+    sums = x
+    for axis in (2, 3, 4):
+        pads = [0, 0] * 3
+        pads[2 * (4 - axis):2 * (4 - axis) + 2] = _same_pads(x.shape[axis], kernel, stride)
+        windows = F.pad(sums, pads).unfold(axis, kernel, stride)  # F.pad: last axis first
+        sums = windows[..., 0]
+        for j in range(1, kernel):
+            sums = sums + windows[..., j]
+    out = sums / _avg_pool_counts(x, kernel, stride)
+    return F.relu(out) if relu else out
+
+
+def avg_pool3d(x, kernel: int, stride: int, *, separable: bool = True, relu: bool = False):
+    """3D average pool, SAME padding; the divisor counts only the valid
+    (unpadded) cells of each window, as TensorFlow does, and is the outer
+    product of the per-axis valid counts; then max(out, 0) where `relu` (the
+    pool branch's ReLU).  An ActQ keeps its bound.
+
+    Separable (serving, JAX `ops/nn.py:394-414`): one window sum per spatial
+    axis, each summed one cell at a time in x.dtype.  A CUDA tensor whose
+    gradient is not recorded (serving, the eval step) takes the kernel, one
+    launch a pool, in NCDHW order; a CPU tensor, or one whose gradient is
+    recorded, the plain version.  `separable=False` (training, JAX
+    `:383-393`): one k^3 window sum, which keeps no per-axis intermediates
+    for the backward pass, taken in float32."""
+    x, x_amax = unwrap(x)
     if not separable:
         # the window sums in float32, rounded once to x.dtype (what CUDA's
         # bfloat16 kernel does; the CPU has none)
         sums = F.avg_pool3d(_pad_same(x, kernel, stride).float(), kernel, stride,
                             divisor_override=1).to(x.dtype)
-    out = sums / counts
+        out = sums / _avg_pool_counts(x, kernel, stride)
+        out = F.relu(out) if relu else out
+    elif x.is_cuda and not (torch.is_grad_enabled() and x.requires_grad):
+        out = pool_cuda.avg_pool3d_cuda(x.contiguous(), kernel, stride, relu)
+    else:
+        out = avg_pool3d_reference(x, kernel, stride, relu)
     return out if x_amax is None else ActQ(out, x_amax)
 
 
@@ -323,9 +348,9 @@ class Inception3D(nn.Module):
     The pool branch follows JAX's order (`ops/nn.py:425-459`).  In training
     and when cin <= n: relu(BN(conv(avgpool(x)))), the pool non-separable
     in training.  At inference with cin > n the conv and BN run first on x,
-    without ReLU, then the pool, then the ReLU (the same function up to
-    float reassociation, on n instead of cin channels).  Under int8 that
-    branch carries the bound of its pre-ReLU BN output."""
+    without ReLU, then the pool with the ReLU inside it (the same function
+    up to float reassociation, on n instead of cin channels).  Under int8
+    that branch carries the bound of its pre-ReLU BN output."""
 
     def __init__(self, cin: int, n_filters: int, kernel_sizes=(3, 5)):
         super().__init__()
@@ -346,9 +371,7 @@ class Inception3D(nn.Module):
         if training or self.cin <= self.n:
             ap = self.conv4(avg_pool3d(x, self.k1, 1, separable=not training), **bn)
         else:
-            ap, ap_amax = unwrap(self.conv4(x, relu=False))
-            ap = F.relu(avg_pool3d(ap, self.k1, 1))
-            ap = ap if ap_amax is None else ActQ(ap, ap_amax)
+            ap = avg_pool3d(self.conv4(x, relu=False), self.k1, 1, relu=True)
         parts = [one, b1, b2, ap]
         if all(isinstance(p, ActQ) for p in parts):
             return ActQ(torch.cat([p.x for p in parts], dim=1),

@@ -168,7 +168,7 @@ def prebuild(device) -> None:
         from ..ops.kernels import int8_cuda, mups_cuda, pool_cuda
         from ..ops.kernels.build import build_all
 
-        build_all((mups_cuda.KERNEL, *int8_cuda.KERNELS, pool_cuda.POOL))
+        build_all((mups_cuda.KERNEL, *int8_cuda.KERNELS, *pool_cuda.KERNELS))
 
 
 def _die_with_parent() -> None:
